@@ -1,0 +1,26 @@
+"""Exact brute-force cosine top-k over a device-resident corpus (port of
+``codesearch_tpu/ops/topk.py``).
+
+A CPU tensor scores with the plain PyTorch version; a CUDA tensor goes to
+the hand-written kernels of ``fused_topk`` whatever the number of queries
+(the JAX package's ``q >= 8`` gate was a TPU measurement). On a CUDA
+tensor a k above ``fused_topk.MAX_K`` raises; it is not sent to the plain
+version, as the JAX dispatch sends it to XLA ``top_k``.
+"""
+
+from __future__ import annotations
+
+from . import fused_topk
+from .fused_topk import quantize_rows_int8
+
+__all__ = ["cosine_topk", "cosine_topk_int8", "quantize_rows_int8"]
+
+
+def cosine_topk(queries, corpus, valid, k: int):
+    """Exact cosine top-k -> (scores [Q, k] f32, indices [Q, k] i32)."""
+    return fused_topk.fused_cosine_topk(queries, corpus, valid, k)
+
+
+def cosine_topk_int8(queries, corpus_q, row_scale, valid, k: int):
+    """int8 exact top-k (queries quantized per row, as the corpus is)."""
+    return fused_topk.fused_cosine_topk_int8(queries, corpus_q, row_scale, valid, k)
