@@ -21,7 +21,7 @@ when any phase fails:
    views of one fused QKV projection) at S in {64, 512}, with padded masks
    and a fully masked row, and window, bias2d, requires_grad and unsupported
    inputs raising;
-4. indexes the repository's own ``codesearch_tpu/`` sources with the port
+4. indexes the port's own ``codesearch_tpu_torch/`` sources with the port
    (code-hash-384) and searches that index through the port's CLI
    (``--json``);
 5. builds a 262,144-chunk synthetic index through the port's write plane
@@ -38,10 +38,23 @@ when any phase fails:
    query) with no plain version called on the card, the device's idle
    share, the GPU session held against a CPU
    session (query embeddings agree, each vector list is an exact top-k of
-   its own query vector), and a short int8 pass.
+   its own query vector), and a short int8 pass;
+8. kernel f (head-packed attention) against its plain twin at the head-
+   packing ablation's full width (B=256, H=12, S=512, Dh=32) and at S=64,
+   for P=4 and P=2, with ragged masks and a fully masked row, at ragged S,
+   on the encoder's strided views and at its sequence bound, with refused
+   inputs raising; then the ablation entry point
+   (``codesearch_tpu_torch.examples.ablate_head_packing``) at its defaults,
+   its launches of f counted on their own, and its table logged.
 
-It prints one JSON line of per-kernel results, the ``nvidia-smi`` name and
-power-limit line, and last the result line the harness reads.
+Beside each kernel's time it prints its bound on the card (the larger of
+the bytes it must move over 3.35 TB/s and its operations over the peak rate
+of their type) and, where one PyTorch call computes the same function, that
+call's time (``library_ms``: ``scaled_dot_product_attention`` for d, e, f;
+``torch.topk`` over the pre-boosted rows for c; none for a and b). It
+prints one JSON line of per-kernel results, the ``nvidia-smi`` name and
+power-limit line, and last the result line the harness reads. It fails if
+``jax`` or any module of the JAX package ``codesearch_tpu`` was imported.
 """
 
 from __future__ import annotations
@@ -68,6 +81,12 @@ SCORE_TOL = 1e-5    # bf16 kernel vs plain: f32 sums over d=384 in another order
 # boundary at most, one bf16 ulp (2**-7 relative) of the value
 ATTN_ATOL = 1e-2
 ATTN_RTOL = 1e-2
+# kernel f must keep its own rounding (p normalised in f32, then cast to
+# bf16): one bf16 step passes d's order too (bf16(p) @ V, then the divide),
+# so f may also differ from its twin in at most this share of outputs (sums
+# in another order flip a rounding now and then), and d's order, run on the
+# same inputs, must exceed it (it rounds every p otherwise)
+PACKED_SHARE_MAX = 0.02
 BERT_MODEL = "bge-small"
 BERT_LAYERS = 12
 BERT_BATCH = 256        # bge-small's device batch when indexing (embed/service.py)
@@ -80,6 +99,7 @@ SOURCES = {
     "fused_scores_topk": _TOPK_CU,
     "attention_full": _ATTN_CU,
     "attention_flash": _ATTN_CU,
+    "attention_packed": _ATTN_CU,
 }
 REPLACES = {
     "fused_cosine_topk": "codesearch_tpu/ops/pallas_topk.py:244",
@@ -87,14 +107,21 @@ REPLACES = {
     "fused_scores_topk": "codesearch_tpu/ops/pallas_topk.py:164",
     "attention_full": "codesearch_tpu/ops/attention.py:110",
     "attention_flash": "codesearch_tpu/ops/attention.py:140",
+    "attention_packed": "examples/ablate_head_packing.py:88",
 }
-# the kernels' plain versions: none may run on the card's main path
+# the kernels' plain versions: none may run on the card's main path (the
+# head-packing ablation computes reference_attention as its reference row)
 PLAIN_VERSIONS = {
     "codesearch_tpu_torch.ops.fused_topk": (
         "fused_cosine_topk_plain", "fused_cosine_topk_int8_plain", "fused_scores_topk_plain"),
     "codesearch_tpu_torch.ops.attention": (
         "attention_full_plain", "attention_flash_plain", "reference_attention"),
+    "codesearch_tpu_torch.ops.packed_attention": ("attention_packed_plain",),
 }
+# published H100 SXM peaks (dense): the bound of a kernel is the larger of
+# its bytes over the memory rate and its operations over the rate of their type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 VERBS = ["parse", "walk", "render", "compute", "merge", "flush", "encode",
          "resolve", "validate", "dispatch", "batch", "cache", "track", "scan", "load"]
 NOUNS = ["config", "tree", "buffer", "index", "token", "matrix", "query", "chunk",
@@ -117,16 +144,53 @@ def log(msg: str) -> None:
 def reset_counts() -> None:
     from codesearch_tpu_torch.ops import attention as att
     from codesearch_tpu_torch.ops import fused_topk as ft
+    from codesearch_tpu_torch.ops import packed_attention as pa
 
     ft.reset_launch_counts()
     att.reset_launch_counts()
+    pa.reset_launch_counts()
 
 
 def launch_counts() -> dict:
     from codesearch_tpu_torch.ops import attention as att
     from codesearch_tpu_torch.ops import fused_topk as ft
+    from codesearch_tpu_torch.ops import packed_attention as pa
 
-    return {**ft.launch_counts, **att.launch_counts}
+    return {**ft.launch_counts, **att.launch_counts, **pa.launch_counts}
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: bytes moved (each input read once,
+    each output written once) over the memory rate against operations over
+    the peak rate of their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def attention_bound(q, mask) -> dict:
+    """What the function needs on these inputs: q read and o written in
+    full (bf16) and the f32 mask read once; K and V read, and QK^T and PV
+    computed (Dh multiply-adds each per query row and key), only for the keys
+    that count: a row's valid keys, or all S of a fully masked row (its
+    output is the mean of V). A masked key beside a valid one adds exact 0."""
+    b, h, s, dh = q.shape
+    lens = mask.sum(dim=1)
+    keys = float((lens + (lens == 0) * s).sum())    # summed over the batch
+    return bound(2 * b * h * s * dh * 2 + 2 * h * keys * dh * 2 + b * s * 4,
+                 4 * h * s * keys * dh, "bf16")
+
+
+def sdpa_ms(q, k, v, mask) -> float:
+    """``library_ms`` of an attention kernel: one scaled_dot_product_attention
+    call with the same additive mask (timed here only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from codesearch_tpu_torch.examples.ablate_head_packing import cuda_ms
+
+    bias = ((1.0 - mask.float()) * -1e30)[:, None, None, :].to(q.dtype)
+    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias), reps=10)
 
 
 class PlainCalls:
@@ -158,24 +222,6 @@ class PlainCalls:
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
-
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms, CUDA events around each call."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
-
 
 def make_corpus(n: int, d: int, gen):
     """Unit rows with every 7th row a copy of its neighbour (exact ties)
@@ -216,6 +262,7 @@ def compare_cosine(got, ref, ref_next, plain_scores):
 def kernel_checks(device: str) -> dict:
     import torch
 
+    from codesearch_tpu_torch.examples.ablate_head_packing import cuda_ms
     from codesearch_tpu_torch.ops import fused_topk as ft
     from codesearch_tpu_torch.ops.bm25 import DEAD_SLOT
     from codesearch_tpu_torch.ops.topk import quantize_rows_int8
@@ -325,6 +372,26 @@ def kernel_checks(device: str) -> dict:
             })
             log(f"time {name} {shape} N={N_ROWS}: kernel {t_kern_1}/{t_kern_2} ms, plain "
                 f"{t_plain_1}/{t_plain_2} ms (median of 20, plain-kernel-kernel-plain)")
+    # bounds at the reported shapes: a and b at Q=1, k=200 (the corpus read
+    # dominates), c at one score row, k=256, each counting only the rows this
+    # run's data needs (valid corpus rows, live score slots) besides every
+    # row's flag; no one PyTorch call computes a or b (a masked cosine matmul
+    # plus a top-k with the lowest index on ties)
+    n_valid, n_live = int(vd.sum()), int((md != DEAD_SLOT).sum())
+    out["fused_cosine_topk"].update(
+        bound(n_valid * DIMS * 2 + N_ROWS + DIMS * 4 + 200 * 8, 2 * n_valid * DIMS, "bf16"),
+        library_ms=None)
+    out["fused_cosine_topk_int8"].update(
+        bound(n_valid * (DIMS + 4) + N_ROWS + DIMS * 4 + 200 * 8, 2 * n_valid * DIMS, "int8"),
+        library_ms=None)
+    boosted = torch.where(md[None, :] == DEAD_SLOT, ft.NEG_INF,
+                          s1 * torch.where(md[None, :] == k1[:, None], 3.0, 1.0))
+    out["fused_scores_topk"].update(
+        bound(n_live * 4 + N_ROWS * 4 + 4 + 256 * 8, n_live, "f32"),
+        library_ms=cuda_ms(lambda: torch.topk(boosted, 256, dim=1)))
+    for name, v in out.items():
+        log(f"bound {name}: {v['bound_ms']} ms ({v['bound_by']}); kernel {v['ms']} ms; "
+            f"library call {v['library_ms']} ms")
     return out
 
 
@@ -362,6 +429,7 @@ def attention_checks(device: str) -> dict:
     """Kernels d and e against their plain twins (bf16) and their times."""
     import torch
 
+    from codesearch_tpu_torch.examples.ablate_head_packing import cuda_ms
     from codesearch_tpu_torch.ops import attention as att
 
     bound = {dh: att.full_max_seq(dh, device) for dh in att.HEAD_DIMS}
@@ -417,7 +485,11 @@ def attention_checks(device: str) -> dict:
             t_plain_2 = cuda_ms(lambda: plain(q, k, v, mask), reps=10)
             # the JSON line reports d at bge-small's largest bucket, e at S=2048
             if (name, s, dh) in (("attention_full", 512, 32), ("attention_flash", 2048, 32)):
-                out[name] = {"ms": min(t_kern_1, t_kern_2), "plain_ms": min(t_plain_1, t_plain_2)}
+                out[name] = {"ms": min(t_kern_1, t_kern_2), "plain_ms": min(t_plain_1, t_plain_2),
+                             **attention_bound(q, mask), "library_ms": sdpa_ms(q, k, v, mask)}
+                log(f"bound {name} B={b} H={h} S={s} Dh={dh}: {out[name]['bound_ms']} ms "
+                    f"({out[name]['bound_by']}); scaled_dot_product_attention "
+                    f"{out[name]['library_ms']} ms")
             log(f"time {name} B={b} H={h} S={s} Dh={dh}: kernel {t_kern_1}/{t_kern_2} ms, "
                 f"plain {t_plain_1}/{t_plain_2} ms (median of 10, plain-kernel-kernel-plain)")
         del q, k, v, mask, got, ref
@@ -451,7 +523,124 @@ def attention_checks(device: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the repository's own sources through index() and the CLI
+# phase 8: kernel f and the head-packing ablation
+# ---------------------------------------------------------------------------
+
+def packed_checks(device: str) -> dict:
+    """Kernel f against its plain twin (bf16), its times, bound and the
+    library call at the ablation's full width, and its refusals."""
+    import torch
+
+    from codesearch_tpu_torch.examples.ablate_head_packing import cuda_ms
+    from codesearch_tpu_torch.ops import attention as att
+    from codesearch_tpu_torch.ops import packed_attention as pa
+
+    # (B, H, S, P, timed, fused_qkv): the ablation's width for both P, its
+    # shortest bucket, ragged S, the sequence bound and the encoder's views
+    cases = [(256, 12, 512, 4, True, False), (256, 12, 512, 2, True, False),
+             (256, 12, 64, 4, False, False), (256, 12, 64, 2, False, False),
+             (4, 12, 100, 4, False, False), (4, 8, 1000, 2, False, False),
+             (2, 12, pa.PACKED_MAX_SEQ, 4, False, False), (256, 12, 512, 4, False, True)]
+    err = 0.0
+    out: dict = {}
+    for i, (b, h, s, pack, timed, fused_qkv) in enumerate(cases):
+        q, k, v, mask = attention_inputs(b, h, s, 32, seed=100 + i, device=device,
+                                         fused_qkv=fused_qkv)
+        got = pa.attention_packed(q, k, v, mask, pack)
+        torch.cuda.synchronize()
+        ref = pa.attention_packed_plain(q.contiguous(), k.contiguous(), v.contiguous(), mask,
+                                        pack)
+        e, share, ok = compare_attention(got, ref)
+        d_err, d_share, _ = compare_attention(
+            att.attention_full_plain(q.contiguous(), k.contiguous(), v.contiguous(), mask), ref)
+        finite = bool(torch.isfinite(got).all())
+        layout = "views of a fused QKV projection" if fused_qkv else "contiguous"
+        log(f"kernel f attention_packed B={b} H={h} S={s} P={pack} ({layout}): max |out - "
+            f"plain| {e} (tol {ATTN_ATOL} + {ATTN_RTOL}|plain|), share of outputs differing "
+            f"{share:.2e} (limit {PACKED_SHARE_MAX}; d's order: max {d_err}, share "
+            f"{d_share:.2e}), all finite {finite}, fully masked row "
+            f"{got[-1, 0, 0, :4].float().tolist()}")
+        check(ok and finite and share <= PACKED_SHARE_MAX,
+              f"attention_packed disagrees with its plain version at B={b} "
+              f"H={h} S={s} P={pack} ({layout})")
+        check(d_share > PACKED_SHARE_MAX, f"the share limit does not tell d's rounding from "
+              f"f's at B={b} H={h} S={s} P={pack}")
+        err = max(err, e)
+        if timed:
+            t_plain_1 = cuda_ms(lambda: pa.attention_packed_plain(q, k, v, mask, pack), reps=10)
+            t_kern_1 = cuda_ms(lambda: pa.attention_packed(q, k, v, mask, pack), reps=10)
+            t_kern_2 = cuda_ms(lambda: pa.attention_packed(q, k, v, mask, pack), reps=10)
+            t_plain_2 = cuda_ms(lambda: pa.attention_packed_plain(q, k, v, mask, pack), reps=10)
+            lib = sdpa_ms(q, k, v, mask)
+            bnd = attention_bound(q, mask)
+            log(f"time attention_packed B={b} H={h} S={s} P={pack}: kernel {t_kern_1}/"
+                f"{t_kern_2} ms, plain {t_plain_1}/{t_plain_2} ms (median of 10, plain-kernel-"
+                f"kernel-plain); scaled_dot_product_attention {lib} ms; bound "
+                f"{bnd['bound_ms']} ms ({bnd['bound_by']})")
+            # the JSON line reports P=4, the ablation's headline packing
+            out.setdefault("attention_packed", {
+                "ms": min(t_kern_1, t_kern_2), "plain_ms": min(t_plain_1, t_plain_2),
+                **bnd, "library_ms": lib})
+        del q, k, v, mask, got, ref
+        torch.cuda.empty_cache()
+
+    q, k, v, mask = attention_inputs(2, 12, 64, 32, seed=199, device=device)
+    z64 = torch.zeros(2, 12, 64, 64, dtype=torch.bfloat16, device=device)
+    before = dict(pa.launch_counts)
+    for what, call, exc in (
+            ("f32 inputs", lambda: pa.attention_packed(q.float(), k.float(), v.float(), mask),
+             TypeError),
+            ("pack=3", lambda: pa.attention_packed(q, k, v, mask, 3), ValueError),
+            ("H=10, pack=4", lambda: pa.attention_packed(q[:, :10], k[:, :10], v[:, :10], mask),
+             ValueError),
+            ("Dh=64", lambda: pa.attention_packed(z64, z64, z64, mask), ValueError),
+            ("requires_grad", lambda: pa.attention_packed(q.clone().requires_grad_(True), k, v,
+                                                          mask), NotImplementedError)):
+        try:
+            call()
+        except exc as e:
+            log(f"attention_packed with {what} on the card raises {type(e).__name__}: {e}")
+        else:
+            raise SmokeFailure(f"attention_packed with {what} on the card did not raise")
+    check(pa.launch_counts == before, "attention_packed launched on refused inputs")
+    out["attention_packed"]["max_abs_err"] = err
+    return out
+
+
+def packed_ablation(work: Path) -> dict:
+    """The head-packing ablation entry point at its defaults (B=256, H=12,
+    S=512, Dh=32) on the card, its launches counted on their own. Kernel f
+    must launch, no kernel's plain twin may run (the study's reference row is
+    reference_attention by design), and f's rows must agree with the
+    reference within one bf16 step."""
+    from codesearch_tpu_torch.examples import ablate_head_packing as abl
+
+    table = work / "head_packing.md"
+    with PlainCalls() as plain:
+        reset_counts()
+        rc = abl.main(["--device", "cuda", "--out", str(table)])
+        counts = launch_counts()
+    twins = {n: c for n, c in plain.calls.items() if n != "reference_attention"}
+    log(f"head-packing ablation: exit {rc}, kernel launches {counts}, plain versions called "
+        f"{dict(plain.calls)}")
+    check(rc == 0, f"the ablation exited {rc}")
+    check(counts["attention_packed"] > 0 and counts["attention_full"] > 0,
+          "the ablation did not launch kernels f and d")
+    check(not twins, f"kernel plain twins ran in the ablation: {twins}")
+    lines = table.read_text().splitlines()
+    rows = lines[lines.index("|---|---|---|") + 1:]
+    rows = rows[:next((i for i, line in enumerate(rows) if not line.startswith("|")),
+                      len(rows))]
+    errs = {line.split("|")[1].strip(): float(line.split("|")[2]) for line in rows}
+    log(f"head-packing ablation's verdict: {lines[-1]}")
+    check(len(errs) == 4 and all(e <= ATTN_ATOL + ATTN_RTOL for n, e in errs.items()
+                                 if n.startswith("kernel f")),
+          f"the ablation's kernel f rows disagree with the reference: {errs}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the port's own sources through index() and the CLI
 # ---------------------------------------------------------------------------
 
 def repo_index_and_cli(work: Path, device: str, model: str = "code-hash-384") -> None:
@@ -459,16 +648,16 @@ def repo_index_and_cli(work: Path, device: str, model: str = "code-hash-384") ->
 
     db = work / f"self-db-{model}"
     t0 = time.perf_counter()
-    stats = index(ROOT / "codesearch_tpu",
+    stats = index(ROOT / "codesearch_tpu_torch",
                   IndexOptions(store_path=db, quiet=True, model=model), device=device)
-    log(f"index codesearch_tpu/ with {model}: {stats.files_indexed} files, "
+    log(f"index codesearch_tpu_torch/ with {model}: {stats.files_indexed} files, "
         f"{stats.chunks_added} chunks in {time.perf_counter() - t0:.2f} s")
     check(stats.chunks_added > 100, "indexing the repository's sources found too few chunks")
     check(json.loads((db / "metadata.json").read_text())["model"] == model,
           f"the index metadata does not name {model}")
     cmd = [sys.executable, "-m", "codesearch_tpu_torch.cli", "--store", str(db),
            *(["--platform", "cpu"] if device == "cpu" else []),
-           "search", "exact cosine top-k over the corpus", str(ROOT / "codesearch_tpu"),
+           "search", "exact cosine top-k over the corpus", str(ROOT / "codesearch_tpu_torch"),
            "--json", "--limit", "5"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
@@ -479,7 +668,8 @@ def repo_index_and_cli(work: Path, device: str, model: str = "code-hash-384") ->
     log(f"CLI search --json in {time.perf_counter() - t0:.2f} s: {len(hits)} hits, top "
         f"{hits[0]['path'] if hits else None}")
     check(len(hits) == 5 and all(any((base / h["path"]).is_file()
-                                     for base in (ROOT / "codesearch_tpu", ROOT)) for h in hits),
+                                     for base in (ROOT / "codesearch_tpu_torch", ROOT))
+                          for h in hits),
           "CLI search returned unexpected results")
     # the hash model ranks by code features; bge-small's random weights rank noise
     check(model != "code-hash-384" or all(h["path"].endswith(".py") for h in hits),
@@ -915,7 +1105,7 @@ def main() -> int:
         log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
         log(f"card: {smi}")
-        from codesearch_tpu_torch.models.hash_embedder import _native_lib
+        from codesearch_tpu_torch import native
         from codesearch_tpu_torch.ops import _build
         from codesearch_tpu_torch.ops import fused_topk as ft
 
@@ -925,7 +1115,7 @@ def main() -> int:
         except ImportError:
             has_msgpack = False
         log(f"msgpack importable: {has_msgpack}; native host tier (g++) loaded: "
-            f"{_native_lib() is not None}")
+            f"{native.is_available()}")
         t = time.perf_counter()
         _build.load(verbose=True)
         log(f"kernel build + load {time.perf_counter() - t:.2f} s "
@@ -941,9 +1131,11 @@ def main() -> int:
 
         att.reset_launch_counts()
         repo_index_and_cli(work, "cuda", model=BERT_MODEL)
-        log(f"{BERT_MODEL} index of codesearch_tpu/: attention launches by (kernel, S) "
+        log(f"{BERT_MODEL} index of codesearch_tpu_torch/: attention launches by (kernel, S) "
             f"{dict(att.launches_by_seq)}")
         bert = bert_synthetic(work, N_ROWS, "cuda")
+        timing.update(packed_checks("cuda"))
+        ablation = packed_ablation(work)
         kernels = []
         # launches: phase 7's counted paths, bge-small's index, its bf16 and
         # int8 queries (the "search" route) and the direct S=2048 call of the
@@ -955,8 +1147,17 @@ def main() -> int:
             kernels.append({"name": name, "route": "cuda", "via": via, "source": SOURCES[name],
                             "replaces": REPLACES[name], "launches": sum(by_path.values()),
                             "launches_by_path": by_path, **timing[name]})
+        # f's path is the head-packing ablation (phase 8), counted on its own
+        kernels.append({"name": "attention_packed", "route": "cuda", "via": "ablation",
+                        "source": SOURCES["attention_packed"],
+                        "replaces": REPLACES["attention_packed"],
+                        "launches": ablation["attention_packed"],
+                        "launches_by_path": {"ablation": ablation["attention_packed"]},
+                        **timing["attention_packed"]})
         check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
-        check("jax" not in sys.modules, "jax was imported")
+        jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                                         "codesearch_tpu"))
+        check(not jax_side, f"jax or the JAX package was imported: {jax_side[:5]}")
         print(json.dumps({"kernels": kernels}))
         print(smi)
         print(json.dumps({"ok": True, "device": {

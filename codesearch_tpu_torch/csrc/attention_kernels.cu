@@ -1,11 +1,15 @@
 // Encoder attention kernels for Hopper (sm_90a), bound to Python via ctypes.
 //
-// Replaces the two Pallas attention kernels of codesearch_tpu/ops/attention.py:
-//   cs_attention_full   <- pallas_attention_full (_full_kernel)   kernel d
-//   cs_attention_flash  <- pallas_attention      (_flash_kernel)  kernel e
-// Both compute non-causal attention over a [B, H, S, Dh] bf16 batch with a
+// Replaces the three Pallas attention kernels of the JAX package:
+//   cs_attention_full   <- pallas_attention_full (codesearch_tpu/ops/attention.py,
+//                          _full_kernel)                                kernel d
+//   cs_attention_flash  <- pallas_attention (same file, _flash_kernel)    kernel e
+//   cs_attention_packed <- packed_attention (examples/ablate_head_packing.py,
+//                          _packed_kernel)                              kernel f
+// All compute non-causal attention over a [B, H, S, Dh] bf16 batch with a
 // [B, S] padding mask added to the scores as (1 - m) * -1e30 (never -inf, so
-// a fully masked row stays finite: it averages V). Dh is 32 or 64.
+// a fully masked row stays finite: it averages V). Dh is 32 or 64 for d and
+// e, 32 for f.
 //
 // What bounds them on an H100: per (batch, head) the score matrix is S x S,
 // 2*S*S*Dh flops each for QK^T and PV, against 3*S*Dh*2 bytes of Q, K, V.
@@ -40,6 +44,39 @@
 // stored. Q, K, V and O may be strided views (last dimension contiguous,
 // other strides multiples of 8 elements), so the encoder hands over its fused
 // QKV projection without copies and takes O in [B, S, H, Dh] order.
+//
+//   f (packed) The TPU kernel packs P heads into one block-diagonal product
+//              only to fill the MXU's 128-deep array (4x the MACs at P=4);
+//              that construction is not carried over. On Hopper packing means
+//              that one CTA owns the P heads (P = 2 or 4) of one head group of
+//              one batch element, for 64 query rows: the mask row is loaded
+//              once for the P heads, the PV output tile is P * 32 wide, and the
+//              CTA writes whole [rows, P * 32] slices of the [B, S, H, Dh]
+//              output. Each head has its own group of four warps (P * 4 warps
+//              a CTA), so a thread holds one head's fragments, as in d and e:
+//              a first version that looped over the P heads in every warp
+//              held P heads' accumulators per thread, and at that register
+//              count it took 6.1 ms at P=4 against d's 2.25 ms (B=256, H=12,
+//              S=512; H100 80GB HBM3 at 700 W). The
+//              TPU kernel holds the whole [S, P * S] score tile; here K and V
+//              of P heads at S=512 alone are 256 KB, past the 227 KB a block
+//              may use, so K and V stream through shared memory in tiles of 64
+//              keys, double-buffered with cp.async (zero-filled past S). f
+//              normalises before the bf16 cast (p = e / max(sum, 1e-30), then
+//              bf16(p) @ V), so the exact row max and sum must be known before
+//              any p @ V: sweep 1 streams K for a running max and sum in f32;
+//              sweep 2 streams K and V, forms p (e times the rounded
+//              reciprocal of the sum, within one f32 ulp of the quotient),
+//              rounds it to bf16 and accumulates p @ V in f32 with mma.sync. K
+//              and V sit in shared memory as [key][Dh + 8]; V's B-fragments
+//              come from ldmatrix.trans. Bound on this card: at bge-small's
+//              shapes (B=256, H=12, S=512) f needs 103 GFLOP and moves 403 MB
+//              of Q, K, V and O, so memory bounds it (0.120 ms at 3.35 TB/s
+//              against 0.104 ms at 989 TFLOP/s). This design computes q . k
+//              and exp twice per score and sits well above that bound; a
+//              simple kernel that is right comes first (wgmma/TMA are later
+//              work). S is bounded only by the index arithmetic; the wrapper
+//              holds it to PACKED_MAX_SEQ, the longest sequence it is checked at.
 //
 // Every kernel launches on the caller's stream and allocates nothing; every
 // entry point returns the CUDA error of its launch (0 on success, -1 for a
@@ -342,6 +379,206 @@ attention_flash(const bf16* __restrict__ q, const bf16* __restrict__ k,
               fmaxf(lb, 1e-30f));
 }
 
+// ---- f: P heads of one group per CTA, K/V streamed, normalise-then-cast ---
+constexpr int kPackedDh = 32;
+constexpr int kPackedKeys = 64;              // keys per streamed tile of f
+constexpr int kPackedRow = kPackedDh + kPad; // bf16 per shared K or V row
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled, src not read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four transposed 8x8 bf16 tiles: from [key][Dh + kPad] rows of V, lane l
+// naming row (l & 15) at column (l >> 4) * 8, r0 r1 are the B-fragments
+// (keys 0-7, 8-15) of one 8-wide column tile and r2 r3 those of the next.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// Queues the copy of keys [k0, k0 + kPackedKeys) of the P heads' K (and V)
+// into one buffer, zeros past S, and writes the tile's mask bias (loaded once
+// for the P heads).
+template <int P>
+__device__ __forceinline__ void packed_tile(const bf16* kg, const bf16* vg, const Layout& L,
+                                            const float* mrow, int k0, int S, bf16* kd,
+                                            bf16* vd, float* bias, bool with_v) {
+  constexpr int kChunks = kPackedDh / 8;  // 16-byte chunks per key row
+  for (int i = threadIdx.x; i < P * kPackedKeys * kChunks; i += P * kThreads) {
+    const int c = (i % kChunks) * 8;
+    const int r = (i / kChunks) % kPackedKeys;
+    const int p = i / (kChunks * kPackedKeys);
+    const bool ok = k0 + r < S;
+    const long long key = ok ? k0 + r : 0;
+    const int at = (p * kPackedKeys + r) * kPackedRow + c;
+    cp_async16(kd + at, kg + p * L.kh + key * L.ks + c, ok);
+    if (with_v) cp_async16(vd + at, vg + p * L.vh + key * L.vs + c, ok);
+  }
+  for (int j = threadIdx.x; j < kPackedKeys; j += P * kThreads)
+    bias[j] = k0 + j < S ? mask_bias(mrow[k0 + j]) : 0.0f;
+}
+
+template <int P>
+__global__ void __launch_bounds__(P * kThreads)
+attention_packed(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const float* __restrict__ mask,
+                 bf16* __restrict__ o, Layout L, int G, int S, int n_qblocks, float scale) {
+  constexpr int D = kPackedDh;
+  constexpr int kTile = P * kPackedKeys * kPackedRow;  // bf16 of one K (or V) buffer
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* kbuf = reinterpret_cast<bf16*>(smem);                 // [2][P][64][D + kPad]
+  bf16* vbuf = kbuf + 2 * kTile;                              // [2][P][64][D + kPad]
+  float* bias = reinterpret_cast<float*>(vbuf + 2 * kTile);   // [2][64]
+  const int qb = blockIdx.x % n_qblocks, bg = blockIdx.x / n_qblocks;
+  const int b = bg / G, h0 = (bg % G) * P;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int p = warp / kWarps;  // the warp's head within the group
+  const int row0 = qb * kRowsPerCta + (warp % kWarps) * 16;
+  const bool active = row0 < S;  // warp-uniform; idle warps still copy and join barriers
+  const int n_tiles = (S + kPackedKeys - 1) / kPackedKeys;
+  const int head_rows = p * kPackedKeys * kPackedRow;  // this head's K/V rows in a buffer
+  const bf16* kg = k + b * L.kb + h0 * L.kh;
+  const bf16* vg = v + b * L.vb + h0 * L.vh;
+  const float* mrow = mask + (size_t)b * S;
+
+  uint32_t qa[D / 16][4];
+  load_q<D>(q + b * L.qb + (h0 + p) * L.qh, L.qs, row0, S, g, t, qa);
+
+  // sweep 1: running row max and sum of exp in f32 (keys past S excluded)
+  float ma = -INFINITY, mb = -INFINITY, la = 0.0f, lb = 0.0f;
+  packed_tile<P>(kg, vg, L, mrow, 0, S, kbuf, vbuf, bias, false);
+  cp_async_commit();
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1;
+    if (tile + 1 < n_tiles) {
+      packed_tile<P>(kg, vg, L, mrow, (tile + 1) * kPackedKeys, S, kbuf + (buf ^ 1) * kTile,
+                     vbuf, bias + (buf ^ 1) * kPackedKeys, false);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const int k0 = tile * kPackedKeys;
+      const float* bs = bias + buf * kPackedKeys;
+      const bf16* ks = kbuf + buf * kTile + head_rows;
+      float s[kPackedKeys / 8][4];
+      float ca = -INFINITY, cb = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kPackedKeys / 8; ++j) {
+        score_tile<D>(qa, ks, 8 * j, g, t, s[j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = 8 * j + 2 * t + (i & 1);
+          const float x = __fadd_rn(__fmul_rn(s[j][i], scale), bs[key]);
+          s[j][i] = x;
+          if (k0 + key < S) {
+            if (i < 2) ca = fmaxf(ca, x); else cb = fmaxf(cb, x);
+          }
+        }
+      }
+      const float na = fmaxf(ma, row_max4(ca)), nb = fmaxf(mb, row_max4(cb));
+      float ra = 0.0f, rb = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kPackedKeys / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (k0 + 8 * j + 2 * t + (i & 1) < S) {
+            if (i < 2) ra += expf(s[j][i] - na); else rb += expf(s[j][i] - nb);
+          }
+      la = la * expf(ma - na) + row_sum4(ra);
+      lb = lb * expf(mb - nb) + row_sum4(rb);
+      ma = na;
+      mb = nb;
+    }
+    __syncthreads();  // this buffer is consumed before the next copy into it
+  }
+
+  // sweep 2: p = exp(s - max) / max(sum, 1e-30) in f32, rounded to bf16, and
+  // p @ V accumulated in f32
+  const float ia = __frcp_rn(fmaxf(la, 1e-30f)), ib = __frcp_rn(fmaxf(lb, 1e-30f));
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  packed_tile<P>(kg, vg, L, mrow, 0, S, kbuf, vbuf, bias, true);
+  cp_async_commit();
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1;
+    if (tile + 1 < n_tiles) {
+      packed_tile<P>(kg, vg, L, mrow, (tile + 1) * kPackedKeys, S, kbuf + (buf ^ 1) * kTile,
+                     vbuf + (buf ^ 1) * kTile, bias + (buf ^ 1) * kPackedKeys, true);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const int k0 = tile * kPackedKeys;
+      const float* bs = bias + buf * kPackedKeys;
+      const bf16* ks = kbuf + buf * kTile + head_rows;
+      const bf16* vs = vbuf + buf * kTile + head_rows;
+#pragma unroll
+      for (int kc = 0; kc < kPackedKeys; kc += 16) {
+        float pr[2][4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float c[4];
+          score_tile<D>(qa, ks, kc + 8 * half, g, t, c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = kc + 8 * half + 2 * t + (i & 1);
+            float e = 0.0f;
+            if (k0 + key < S)
+              e = __fmul_rn(expf(__fadd_rn(__fmul_rn(c[i], scale), bs[key]) - (i < 2 ? ma : mb)),
+                            i < 2 ? ia : ib);
+            pr[half][i] = e;
+          }
+        }
+        const uint32_t pa[4] = {pack_bf16(pr[0][0], pr[0][1]), pack_bf16(pr[0][2], pr[0][3]),
+                                pack_bf16(pr[1][0], pr[1][1]), pack_bf16(pr[1][2], pr[1][3])};
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vs + (kc + (lane & 15)) * kPackedRow + np * 16 + (lane >> 4) * 8);
+          mma_16816(acc[2 * np], pa, vb[0], vb[1]);
+          mma_16816(acc[2 * np + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (!active) return;
+  const int ra = row0 + g, rb = row0 + g + 8;
+  bf16* og = o + b * L.ob + (h0 + p) * L.oh;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    if (ra < S)
+      *reinterpret_cast<uint32_t*>(og + ra * L.os + c) = pack_bf16(acc[nt][0], acc[nt][1]);
+    if (rb < S)
+      *reinterpret_cast<uint32_t*>(og + rb * L.os + c) = pack_bf16(acc[nt][2], acc[nt][3]);
+  }
+}
+
+size_t packed_smem_bytes(int pack) {
+  return (size_t)4 * pack * kPackedKeys * kPackedRow * sizeof(bf16) +
+         2 * kPackedKeys * sizeof(float);
+}
+
 size_t full_smem_bytes(int S, int dh) {
   const size_t s16 = (size_t)((S + 15) & ~15);
   return s16 * (dh + kPad) * 2 + (size_t)dh * (s16 + kPad) * 2 + s16 * 4;
@@ -385,6 +622,20 @@ int launch_flash(const void* q, const void* k, const void* v, const void* mask, 
   return (int)cudaGetLastError();
 }
 
+template <int P>
+int launch_packed(const void* q, const void* k, const void* v, const void* mask, void* o,
+                  const Layout& L, int B, int H, int S, float scale, cudaStream_t s) {
+  const size_t smem = packed_smem_bytes(P);
+  cudaError_t e = cudaFuncSetAttribute(attention_packed<P>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int nqb = (S + kRowsPerCta - 1) / kRowsPerCta;
+  attention_packed<P><<<B * (H / P) * nqb, P * kThreads, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (bf16*)o, L, H / P, S,
+      nqb, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -423,6 +674,20 @@ int cs_attention_flash(const void* q, const void* k, const void* v, const void* 
   cudaStream_t s = (cudaStream_t)stream;
   if (dh == 32) return launch_flash<32>(q, k, v, mask, o, L, B, H, S, scale, s);
   return launch_flash<64>(q, k, v, mask, o, L, B, H, S, scale, s);
+}
+
+// Kernel f: q, k, v, o as for cs_attention_full with dh = 32; pack = 2 or 4
+// heads a CTA, H a multiple of pack.
+int cs_attention_packed(const void* q, const void* k, const void* v, const void* mask, void* o,
+                        const long long* st, int B, int H, int S, int dh, int pack, float scale,
+                        void* stream) {
+  if (bad_args(q, k, v, o, st, B, H, S, dh) || dh != kPackedDh || (pack != 2 && pack != 4) ||
+      H % pack != 0)
+    return kErrBadArg;
+  const Layout L = layout_of(st);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (pack == 4) return launch_packed<4>(q, k, v, mask, o, L, B, H, S, scale, s);
+  return launch_packed<2>(q, k, v, mask, o, L, B, H, S, scale, s);
 }
 
 }  // extern "C"

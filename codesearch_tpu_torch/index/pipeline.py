@@ -1,52 +1,203 @@
-"""Indexing pipeline on torch (port of ``codesearch_tpu/index/pipeline.py``).
+"""Indexing pipeline on torch: full + incremental builds (the port of
+``codesearch_tpu/index/pipeline.py``; parity with src/index/mod.rs:364-961).
 
-The orchestration is the JAX package's: walk, diff against the file
-manifest, chunk, embed in slabs with one slab in flight, insert into the
-vector and FTS stores, commit. It is repeated here because the JAX version
-builds its stores and embedding service by module-global name; the port's
-are built on ``device``. Every host helper (database placement, metadata,
-the file manifest, chunker, walker) is imported, so both packages write one
-on-disk format.
+Walk, diff against the file manifest, chunk on the host, embed in slabs on
+``device`` with one slab in flight, insert into the vector and FTS stores,
+commit with atomic snapshots. ``build_index`` is O(1) (no ANN trees). The
+files written — stores, manifest, ``metadata.json`` — are the JAX
+package's format, so either package searches the other's index.
+
+Placement logic: git-root-smart — the database lives at the repository root
+(worktree `.git` files parsed; multiple sibling repos is an error), parity
+with index/mod.rs:35-268.
 """
 
 from __future__ import annotations
 
+import datetime as _dt
+import json
+import os
 import shutil
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
-from codesearch_tpu.chunker import (
+from ..chunker import (
     INDEX_MAX_CHUNK_CHARS,
     INDEX_MAX_CHUNK_LINES,
     INDEX_OVERLAP_LINES,
     SemanticChunker,
 )
-from codesearch_tpu.chunker.dedup import ChunkDeduplicator
-from codesearch_tpu.fileio import FileWalker
-from codesearch_tpu.index.file_meta import FileMetaStore, normalize_path
-from codesearch_tpu.index.pipeline import (
-    EMBED_FILES_PER_BATCH,
-    FTS_COMMIT_EVERY,
-    IndexOptions,
-    IndexStats,
-    ensure_db_ignored,
-    get_db_path_smart,
-    read_metadata,
-    write_metadata,
-)
-from codesearch_tpu.utils.constants import (
+from ..chunker.dedup import ChunkDeduplicator
+from ..embed import EmbeddingService
+from ..fileio import FileWalker
+from ..fts import FtsStore
+from ..utils.constants import (
+    DB_DIR_NAME,
     EMBEDDER_VERSION,
     FTS_DIR_NAME,
+    METADATA_FILE_NAME,
     is_shutdown_requested,
 )
-from codesearch_tpu.utils.output import ProgressLine, info_print, warn_print
-from codesearch_tpu.vectordb.store import ChunkMetadata
+from ..utils.errors import IndexError_
+from ..utils.output import ProgressLine, info_print, warn_print
+from ..vectordb import ChunkMetadata, VectorStore
+from .db_discovery import find_best_database, global_db_path, register_global_db
+from .file_meta import FileMetaStore, normalize_path
 
-from ..embed import EmbeddingService
-from ..fts import FtsStore
-from ..vectordb import VectorStore
+__all__ = ["IndexOptions", "IndexStats", "index", "read_metadata", "write_metadata"]
 
-__all__ = ["IndexOptions", "IndexStats", "index"]
+
+FTS_COMMIT_EVERY = 1000  # chunks between FTS commits (index/mod.rs:751)
+EMBED_FILES_PER_BATCH = 64  # files per embed+insert transaction
+
+
+@dataclass
+class IndexOptions:
+    model: str = "code-hash-384"
+    force: bool = False
+    quiet: bool = False
+    store_path: Path | None = None  # explicit db location override
+    int8: bool = False              # quantized device corpus (halves HBM)
+    global_db: bool = False         # place db under ~/.codesearch/dbs/
+    dry_run: bool = False           # preview what would be indexed, no writes
+    # extra top-level names for the walker to skip (benchmark harnesses
+    # exclude self-referential dirs; mirrors FileWalker.extra_excludes)
+    extra_excludes: tuple = ()
+    # drop repeated-content chunks (license headers, vendored/generated
+    # code) before embedding — first occurrence wins, within one index run
+    # (chunker/dedup.py; the reference ships the same component unwired,
+    # dedup.rs:17-108). Off by default: a dropped duplicate belongs to ONE
+    # file's manifest, so deleting that file also drops the content for
+    # the files that still contain it until their next reindex.
+    dedup: bool = False
+
+
+@dataclass
+class IndexStats:
+    db_path: Path
+    files_walked: int = 0
+    files_indexed: int = 0
+    files_unchanged: int = 0
+    files_deleted: int = 0
+    chunks_added: int = 0
+    chunks_deleted: int = 0
+    chunks_deduped: int = 0
+    cancelled: bool = False
+    elapsed_s: float = 0.0
+    primary_language: str | None = None
+    int8: bool = False
+
+
+def find_git_root(start_path: Path) -> Path | None:
+    """Walk up for `.git` (dir or worktree file) and return that directory.
+
+    For worktrees the `.git` *file* marks the worktree root — the database
+    belongs there (the gitdir reference inside is only needed by the HEAD
+    watcher, watch/mod.rs:329-353).
+    """
+    current = Path(start_path).resolve()
+    while True:
+        if (current / ".git").exists():
+            return current
+        if current.parent == current:
+            return None
+        current = current.parent
+
+
+def multiple_child_repos(path: Path) -> list[Path]:
+    """Direct children that are git repos (multi-repo guard, mod.rs:240-268)."""
+    out = []
+    try:
+        for child in sorted(path.iterdir()):
+            if child.is_dir() and (child / ".git").exists():
+                out.append(child)
+    except OSError:
+        pass
+    return out
+
+
+def get_db_path_smart(
+    project_path: Path,
+    store_path: Path | None = None,
+    force: bool = False,
+    global_db: bool = False,
+) -> tuple[Path, Path]:
+    """Returns (db_path, project_root). ``global_db`` places the database
+    under the config dir (for read-only project trees) and registers the
+    mapping (reference: --global, index/mod.rs:76-108)."""
+    project_path = Path(project_path).resolve()
+    if store_path is not None:
+        return Path(store_path), project_path
+    if global_db:
+        root = find_git_root(project_path) or project_path
+        db = global_db_path(root)
+        db.parent.mkdir(parents=True, exist_ok=True)
+        register_global_db(root, db)
+        return db, root
+    if not force:
+        existing = find_best_database(project_path)
+        if existing is not None:
+            return existing, existing.parent
+    git_root = find_git_root(project_path)
+    if git_root is None:
+        children = multiple_child_repos(project_path)
+        if len(children) > 1:
+            raise IndexError_(
+                f"{project_path} contains multiple git repositories "
+                f"({', '.join(c.name for c in children[:5])}); index each one "
+                "separately or pass an explicit --store path"
+            )
+        root = project_path
+    else:
+        root = git_root
+    return root / DB_DIR_NAME, root
+
+
+def ensure_db_ignored(project_root: Path) -> None:
+    """Make sure `.codesearch.db/` is git-ignored at the project root
+    (reference behavior: ALWAYS_EXCLUDED entries are added to .gitignore
+    automatically, constants.rs:185-189)."""
+    if not (project_root / ".git").exists():
+        return
+    gi = project_root / ".gitignore"
+    try:
+        existing = gi.read_text() if gi.exists() else ""
+        if DB_DIR_NAME not in existing:
+            sep = "" if existing.endswith("\n") or not existing else "\n"
+            with open(gi, "a") as f:
+                f.write(f"{sep}{DB_DIR_NAME}/\n")
+    except OSError:
+        pass
+
+
+def read_metadata(db_path: Path) -> dict:
+    p = Path(db_path) / METADATA_FILE_NAME
+    if not p.exists():
+        return {}
+    try:
+        return json.loads(p.read_text())
+    except (OSError, json.JSONDecodeError):
+        return {}
+
+
+def write_metadata(db_path: Path, service: EmbeddingService, stats: IndexStats) -> None:
+    p = Path(db_path) / METADATA_FILE_NAME
+    existing = read_metadata(db_path)
+
+    payload = {
+        "model": service.model_name,
+        "dimensions": service.dims,
+        "created_at": existing.get("created_at") or _dt.datetime.now().isoformat(),
+        "indexed_at": _dt.datetime.now().isoformat(),
+        "primary_language": stats.primary_language,
+        "version": 1,
+        "embedder_version": EMBEDDER_VERSION,
+        "int8": bool(getattr(stats, "int8", False)),
+    }
+    tmp = p.with_suffix(".tmp")
+    tmp.write_text(json.dumps(payload, indent=2))
+    os.replace(tmp, p)
 
 
 def index(path: str | Path = ".", options: IndexOptions | None = None,

@@ -32,11 +32,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from codesearch_tpu.models.registry import ArchConfig
-
 from ..ops.attention import fused_encoder_attention
+from ..utils.constants import get_config_dir
 from ..utils.device import resolve_device
 from . import jax_random
+from .registry import ArchConfig
 
 _INIT_SCALE = np.float32(0.02)
 
@@ -125,8 +125,6 @@ def unflatten_params(flat) -> dict:
 
 def init_cache_path(cfg: ArchConfig, seed: int = 0) -> Path:
     """Where ``cached_init_params`` keeps the init of this config and seed."""
-    from codesearch_tpu.utils.constants import get_config_dir
-
     digest = hashlib.sha256(f"{cfg!r} seed={seed}".encode()).hexdigest()[:16]
     return get_config_dir() / f"bert_init_{digest}.torch.npz"
 

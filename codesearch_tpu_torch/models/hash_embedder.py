@@ -11,7 +11,7 @@ embed alike and read each other's indexes. Generation takes tens of seconds
 on one core, so the bf16 bits are cached under the config dir.
 
 Featurization is the JAX package's algorithm, byte for byte, through the
-shared native library when it loads and in Python otherwise.
+port's native library (``native/``) when it loads and in Python otherwise.
 """
 
 from __future__ import annotations
@@ -24,11 +24,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from codesearch_tpu.models.tokenizer import code_tokens
-from codesearch_tpu.utils.hashing import stable_u64
-
+from ..native import _featurize_impl as _featurize_native
+from ..native import featurize_batch_native as _featurize_batch_native
+from ..utils.constants import get_config_dir
 from ..utils.device import resolve_device
+from ..utils.hashing import stable_u64
 from .jax_random import normal_f32, prng_key
+from .tokenizer import code_tokens
 
 VOCAB_BUCKETS = 1 << 16
 TABLE_SEED = 0xC0DE5EA
@@ -64,8 +66,6 @@ def make_table_bits(dims: int, buckets: int = VOCAB_BUCKETS,
 
 
 def _table_bits_path(dims: int, buckets: int) -> Path:
-    from codesearch_tpu.utils.constants import get_config_dir
-
     return get_config_dir() / f"hash_table_{TABLE_SEED:08x}_{buckets}x{dims}.torch.u16"
 
 
@@ -128,63 +128,6 @@ def load_table_host(path, dims: int) -> np.ndarray | None:
 # ---------------------------------------------------------------------------
 # featurization (host)
 # ---------------------------------------------------------------------------
-
-def _native_lib():
-    from codesearch_tpu.native import _load
-
-    return _load()
-
-
-def _featurize_native(text: str):
-    import ctypes
-
-    lib = _native_lib()
-    if lib is None:
-        return None
-    raw = text.encode("utf-8", errors="replace")
-    cap = 2 * len(raw) + 16
-    ids = np.empty(cap, np.int64)
-    ws = np.empty(cap, np.float64)
-    n = lib.cs_featurize(
-        raw, len(raw), VOCAB_BUCKETS,
-        ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        ws.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), cap,
-    )
-    if n < 0:
-        return None
-    return ids[:n].copy(), ws[:n].astype(np.float32)
-
-
-def _featurize_batch_native(texts: list[str]):
-    import ctypes
-
-    lib = _native_lib()
-    if lib is None:
-        return None
-    raws = [t.encode("utf-8", errors="replace") for t in texts]
-    long_t = np.int64 if ctypes.sizeof(ctypes.c_long) == 8 else np.int32
-    offs = np.zeros(len(raws) + 1, long_t)
-    offs[1:] = np.cumsum([len(r) for r in raws])
-    total = int(offs[-1])
-    cap = 2 * total + 16 * max(len(raws), 1)
-    ids = np.empty(cap, np.int64)
-    ws = np.empty(cap, np.float64)
-    counts = np.zeros(len(raws), long_t)
-    n = lib.cs_featurize_batch(
-        b"".join(raws), offs.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
-        len(raws), VOCAB_BUCKETS,
-        ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        ws.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), cap,
-        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
-    )
-    if n < 0:
-        return None
-    out, pos = [], 0
-    for c in counts.tolist():
-        out.append((ids[pos:pos + c].copy(), ws[pos:pos + c].astype(np.float32)))
-        pos += c
-    return out
-
 
 def _featurize_py(text: str) -> tuple[np.ndarray, np.ndarray]:
     """Pure-Python featurization: subword unigrams (w = 1+ln tf, x1.5 for

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "cs_scores_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "cs_attention_full": [_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P],
     "cs_attention_flash": [_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P],
+    "cs_attention_packed": [_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -185,7 +185,9 @@ def _check_cuda_inputs(q, k, v, mask) -> tuple[int, int, int, int]:
     return b, h, s, dh
 
 
-def _launch(entry: str, q, k, v, mask):
+def _launch(entry: str, q, k, v, mask, *ints):
+    """Launch ``entry`` on q, k, v (strided views) and the mask; ``ints``
+    follow the head size in its argument list (kernel f's ``pack``)."""
     b, h, s, dh = q.shape
     maskf = mask.to(torch.float32).contiguous()
     # [B, H, S, Dh] view of a [B, S, H, Dh] tensor: the encoder's next
@@ -196,7 +198,7 @@ def _launch(entry: str, q, k, v, mask):
         lib = _build.load()
         rc = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), maskf.data_ptr(), o.data_ptr(),
-            strides, b, h, s, dh, _sm_scale(dh), torch.cuda.current_stream().cuda_stream)
+            strides, b, h, s, dh, *ints, _sm_scale(dh), torch.cuda.current_stream().cuda_stream)
         _build.check(lib, rc, entry)
     return o
 

@@ -1,26 +1,28 @@
-"""Device-OOM degrade (port of ``codesearch_tpu/search/degrade.py``): on a
-device out-of-memory error with score planes enabled, release the planes
-and run the query once more on the sparse BM25 leg."""
+"""Device-OOM degrade (the port of ``codesearch_tpu/search/degrade.py``):
+on a CUDA out-of-memory error with score planes enabled, release the
+resident BM25 score planes and run the query once more on the
+allocation-light sparse leg — degrade and continue rather than fail the
+query."""
 
 from __future__ import annotations
 
 import torch
 
-from codesearch_tpu.search.degrade import is_device_oom as _is_xla_oom
-from codesearch_tpu.utils.logger import get_logger
+from ..utils.logger import get_logger
 
 log = get_logger("search")
 
 
 def is_device_oom(e: Exception) -> bool:
-    """True for a CUDA out-of-memory error (or the JAX package's textual
-    RESOURCE_EXHAUSTED memory error)."""
-    return isinstance(e, torch.OutOfMemoryError) or _is_xla_oom(e)
+    """True for a CUDA out-of-memory error, the one the port's device path
+    can raise."""
+    return isinstance(e, torch.OutOfMemoryError)
 
 
 def dispatch_with_degrade(fts, fn, what: str):
     """Run ``fn()``; on a device OOM with planes enabled, release them and
-    run it once more. Anything else, a second OOM included, propagates."""
+    run it once more. Anything else, a second OOM included, propagates.
+    ``fts`` may be None (nothing to release, so nothing to retry)."""
     try:
         return fn()
     except Exception as e:

@@ -1,1 +1,2 @@
-"""Port-local utilities (the host utilities are imported from codesearch_tpu.utils)."""
+"""Cross-cutting utilities: constants, errors, output control, logging,
+hashing (copies of the JAX package's host modules), and device selection."""

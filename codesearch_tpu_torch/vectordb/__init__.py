@@ -1,5 +1,3 @@
 """Device-resident vector store (torch)."""
 
-from codesearch_tpu.vectordb.store import ChunkMetadata, SearchResult, StoreStats  # noqa: F401
-
-from .store import VectorStore  # noqa: F401
+from .store import ChunkMetadata, SearchResult, VectorStore  # noqa: F401
