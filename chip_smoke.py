@@ -16,11 +16,12 @@ when any phase fails:
    (two merge levels), B in {1, 8} score rows for c, with exact ties and
    invalid rows, and k above the bound raising; attention kernels d and e
    in bf16 at bge-small's heads (H=12, Dh=32) with B=256 and S in {64, 256,
-   512} for d and e, Dh=64 at S=512, e at S in {1024, 2048}, ragged S and
-   d's sequence bound as the card reports it, the encoder's layout (strided
-   views of one fused QKV projection) at S in {64, 512}, with padded masks
-   and a fully masked row, and window, bias2d, requires_grad and unsupported
-   inputs raising;
+   512} for d and e, Dh=64 at S=512, e at S in {1024, 2048}, ragged S,
+   the d/e route at its threshold, the encoder's layout (strided views of
+   one fused QKV projection) at S in {64, 512}, with padded masks, masks
+   with holes (zeros before a row's last valid key) and a fully masked row,
+   d timed on ragged and on full masks, and window, bias2d, requires_grad
+   and unsupported inputs raising;
 4. indexes the port's own ``codesearch_tpu_torch/`` sources with the port
    (code-hash-384) and searches that index through the port's CLI
    (``--json``);
@@ -41,17 +42,22 @@ when any phase fails:
    its own query vector), and a short int8 pass;
 8. kernel f (head-packed attention) against its plain twin at the head-
    packing ablation's full width (B=256, H=12, S=512, Dh=32) and at S=64,
-   for P=4 and P=2, with ragged masks and a fully masked row, at ragged S,
-   on the encoder's strided views and at its sequence bound, with refused
+   for P=4 and P=2, with ragged masks and a fully masked row, timed on
+   ragged and on full masks, on masks with holes, at ragged S, on the
+   encoder's strided views and at its sequence bound, with refused
    inputs raising; then the ablation entry point
    (``codesearch_tpu_torch.examples.ablate_head_packing``) at its defaults,
    its launches of f counted on their own, and its table logged.
 
-Beside each kernel's time it prints its bound on the card (the larger of
-the bytes it must move over 3.35 TB/s and its operations over the peak rate
-of their type) and, where one PyTorch call computes the same function, that
-call's time (``library_ms``: ``scaled_dot_product_attention`` for d, e, f;
-``torch.topk`` over the pre-boosted rows for c; none for a and b). It
+Beside each kernel's time (CUDA events around one call) it prints its
+bound on the card (the larger of the bytes it must move over 3.35 TB/s and
+its operations over the peak rate of their type), for the attention kernels
+and their library call also the device time a call from a replayed CUDA
+graph (events around one call also count the host's time to launch it),
+and, where one PyTorch call computes
+the same function, that call's time (``library_ms``:
+``scaled_dot_product_attention`` for d, e, f; ``torch.topk`` over the
+pre-boosted rows for c; none for a and b). It
 prints one JSON line of per-kernel results, the ``nvidia-smi`` name and
 power-limit line, and last the result line the harness reads. It fails if
 ``jax`` or any module of the JAX package ``codesearch_tpu`` was imported.
@@ -182,15 +188,47 @@ def attention_bound(q, mask) -> dict:
                  4 * h * s * keys * dh, "bf16")
 
 
-def sdpa_ms(q, k, v, mask) -> float:
-    """``library_ms`` of an attention kernel: one scaled_dot_product_attention
-    call with the same additive mask (timed here only; the port never calls it)."""
+def sdpa_call(q, k, v, mask):
+    """One scaled_dot_product_attention call with the same additive mask as
+    the attention kernels (timed here only; the port never calls it)."""
     import torch.nn.functional as F
 
+    bias = ((1.0 - mask.float()) * -1e30)[:, None, None, :].to(q.dtype)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+
+def sdpa_ms(q, k, v, mask) -> float:
+    """``library_ms`` of an attention kernel: the median time of one
+    ``sdpa_call`` (CUDA events)."""
     from codesearch_tpu_torch.examples.ablate_head_packing import cuda_ms
 
-    bias = ((1.0 - mask.float()) * -1e30)[:, None, None, :].to(q.dtype)
-    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias), reps=10)
+    return cuda_ms(sdpa_call(q, k, v, mask), reps=10)
+
+
+def device_ms(fn, calls: int = 10):
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph and replayed between two CUDA events, so the host's time to launch
+    them is not counted (it dominates CUDA-event times of one call for
+    kernels of tens of microseconds); None if ``fn`` cannot be captured."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as e:
+        log(f"  device time not measured: the CUDA graph capture failed ({e})")
+        return None
+    graph.replay()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / calls
 
 
 class PlainCalls:
@@ -396,11 +434,13 @@ def kernel_checks(device: str) -> dict:
 
 
 def attention_inputs(b: int, h: int, s: int, dh: int, seed: int, device: str,
-                     fused_qkv: bool = False):
-    """bf16 [B, H, S, Dh] q, k, v (normal) and a [B, S] padding mask with
-    random lengths: row 0 full, the last row fully masked. ``fused_qkv``
-    makes q, k and v the encoder's strided views of one [B, S, 3 * H * Dh]
-    projection instead of contiguous tensors."""
+                     fused_qkv: bool = False, masks: str = "ragged"):
+    """bf16 [B, H, S, Dh] q, k, v (normal) and a [B, S] padding mask.
+    ``masks``: "ragged", random lengths with row 0 full and the last row
+    fully masked; "holes", the same with about a quarter of the keys before
+    each row's last valid one zeroed too; "full", every key valid.
+    ``fused_qkv`` makes q, k and v the encoder's strided views of one
+    [B, S, 3 * H * Dh] projection instead of contiguous tensors."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -413,8 +453,14 @@ def attention_inputs(b: int, h: int, s: int, dh: int, seed: int, device: str,
     cpu = torch.Generator().manual_seed(seed)
     lengths = torch.randint(1, s + 1, (b,), generator=cpu)
     lengths[0], lengths[-1] = s, 0
-    mask = (torch.arange(s)[None, :] < lengths[:, None]).to(torch.float32).to(device)
-    return q, k, v, mask
+    if masks == "full":
+        lengths[:] = s
+    mask = (torch.arange(s)[None, :] < lengths[:, None]).to(torch.float32)
+    if masks == "holes":
+        last = (lengths - 1).clamp(min=0)[:, None]
+        hole = (torch.rand(b, s, generator=cpu) < 0.25) & (torch.arange(s)[None, :] < last)
+        mask[hole] = 0.0
+    return q, k, v, mask.to(device)
 
 
 def compare_attention(got, ref) -> tuple[float, float, bool]:
@@ -432,39 +478,51 @@ def attention_checks(device: str) -> dict:
     from codesearch_tpu_torch.examples.ablate_head_packing import cuda_ms
     from codesearch_tpu_torch.ops import attention as att
 
-    bound = {dh: att.full_max_seq(dh, device) for dh in att.HEAD_DIMS}
-    log(f"kernel d's sequence bound from the card's shared memory a block: {bound}")
-    if "H100" in torch.cuda.get_device_name(0):
-        check(bound == att.H100_FULL_MAX_SEQ,
-              f"kernel d's bound {bound} on an H100 is not {att.H100_FULL_MAX_SEQ}")
-    # (name, B, H, S, Dh, timed, fused_qkv): bge-small's buckets at its batch
-    # of 256, bge-base/large's head size at S=512, e at d's bge-small shapes,
-    # ragged S, each sequence bound, and the encoder's layout (q, k, v views
-    # of one fused projection) at bge-small's shortest and longest bucket
-    cases = [("attention_full", 256, 12, 64, 32, True, False),
-             ("attention_full", 256, 12, 256, 32, True, False),
-             ("attention_full", 256, 12, 512, 32, True, False),
-             ("attention_full", 128, 12, 512, 64, True, False),
-             ("attention_full", 4, 12, 100, 32, False, False),
-             ("attention_full", 2, 12, bound[32], 32, False, False),
-             ("attention_full", 2, 12, bound[64], 64, False, False),
-             ("attention_full", 256, 12, 64, 32, False, True),
-             ("attention_full", 256, 12, 512, 32, False, True),
-             ("attention_flash", 256, 12, 64, 32, True, False),
-             ("attention_flash", 256, 12, 256, 32, True, False),
-             ("attention_flash", 256, 12, 512, 32, True, False),
-             ("attention_flash", 32, 12, 1024, 32, True, False),
-             ("attention_flash", 8, 12, 2048, 32, True, False),
-             ("attention_flash", 16, 12, 1024, 64, False, False),
-             ("attention_flash", 4, 12, 1000, 32, False, False),
-             ("attention_flash", 256, 12, 512, 32, False, True)]
+    bound = {dh: att.full_max_seq(dh) for dh in att.HEAD_DIMS}
+    log(f"the d/e route's threshold (full_max_seq): {bound}")
+    # the route on the card: d up to the threshold, e one key beyond
+    for dh, s in bound.items():
+        for s_route, name in ((s, "attention_full"), (s + 1, "attention_flash")):
+            q, k, v, mask = attention_inputs(1, 2, s_route, dh, seed=s_route, device=device)
+            before = dict(att.launch_counts)
+            att.fused_encoder_attention(q, k, v, mask)
+            check(att.launch_counts[name] == before[name] + 1,
+                  f"fused_encoder_attention at S={s_route} Dh={dh} did not launch {name}")
+    # (name, B, H, S, Dh, timed, fused_qkv, masks): bge-small's buckets at its
+    # batch of 256, bge-base/large's head size at S=512, e at d's bge-small
+    # shapes, ragged S, each threshold, the encoder's layout (q, k, v views of
+    # one fused projection) at bge-small's shortest and longest bucket, then d
+    # on full masks (what skipping padding keys gains) and on masks with holes
+    cases = [("attention_full", 256, 12, 64, 32, True, False, "ragged"),
+             ("attention_full", 256, 12, 256, 32, True, False, "ragged"),
+             ("attention_full", 256, 12, 512, 32, True, False, "ragged"),
+             ("attention_full", 128, 12, 512, 64, True, False, "ragged"),
+             ("attention_full", 4, 12, 100, 32, False, False, "ragged"),
+             ("attention_full", 2, 12, bound[32], 32, False, False, "ragged"),
+             ("attention_full", 2, 12, bound[64], 64, False, False, "ragged"),
+             ("attention_full", 256, 12, 64, 32, False, True, "ragged"),
+             ("attention_full", 256, 12, 512, 32, False, True, "ragged"),
+             ("attention_flash", 256, 12, 64, 32, True, False, "ragged"),
+             ("attention_flash", 256, 12, 256, 32, True, False, "ragged"),
+             ("attention_flash", 256, 12, 512, 32, True, False, "ragged"),
+             ("attention_flash", 32, 12, 1024, 32, True, False, "ragged"),
+             ("attention_flash", 8, 12, 2048, 32, True, False, "ragged"),
+             ("attention_flash", 16, 12, 1024, 64, False, False, "ragged"),
+             ("attention_flash", 4, 12, 1000, 32, False, False, "ragged"),
+             ("attention_flash", 256, 12, 512, 32, False, True, "ragged"),
+             ("attention_full", 256, 12, 512, 32, True, False, "full"),
+             ("attention_full", 256, 12, 64, 32, True, False, "full"),
+             ("attention_full", 256, 12, 512, 32, False, False, "holes"),
+             ("attention_full", 256, 12, 64, 32, False, False, "holes"),
+             ("attention_full", 128, 12, 512, 64, False, False, "holes")]
     kernels = {"attention_full": (att.attention_full, att.attention_full_plain),
                "attention_flash": (att.attention_flash, att.attention_flash_plain)}
     errs: dict = collections.defaultdict(float)
     out: dict = {}
-    for i, (name, b, h, s, dh, timed, fused_qkv) in enumerate(cases):
+    for i, (name, b, h, s, dh, timed, fused_qkv, masks) in enumerate(cases):
         kern, plain = kernels[name]
-        q, k, v, mask = attention_inputs(b, h, s, dh, seed=i, device=device, fused_qkv=fused_qkv)
+        q, k, v, mask = attention_inputs(b, h, s, dh, seed=i, device=device, fused_qkv=fused_qkv,
+                                         masks=masks)
         got = kern(q, k, v, mask)
         torch.cuda.synchronize()
         ref = plain(q.contiguous(), k.contiguous(), v.contiguous(), mask)
@@ -472,26 +530,29 @@ def attention_checks(device: str) -> dict:
         finite = bool(torch.isfinite(got).all())
         layout = "views of a fused QKV projection" if fused_qkv else "contiguous"
         log(f"kernel {'d' if name == 'attention_full' else 'e'} {name} B={b} H={h} S={s} "
-            f"Dh={dh} ({layout}): max |out - plain| {err} (tol {ATTN_ATOL} + "
+            f"Dh={dh} ({layout}, {masks} masks): max |out - plain| {err} (tol {ATTN_ATOL} + "
             f"{ATTN_RTOL}|plain|), share of outputs differing {share:.2e}, all finite "
             f"{finite}, fully masked row {got[-1, 0, 0, :4].float().tolist()}")
         check(ok and finite, f"{name} disagrees with its plain version at B={b} S={s} "
-              f"Dh={dh} ({layout})")
+              f"Dh={dh} ({layout}, {masks} masks)")
         errs[name] = max(errs[name], err)
         if timed:
             t_plain_1 = cuda_ms(lambda: plain(q, k, v, mask), reps=10)
             t_kern_1 = cuda_ms(lambda: kern(q, k, v, mask), reps=10)
             t_kern_2 = cuda_ms(lambda: kern(q, k, v, mask), reps=10)
             t_plain_2 = cuda_ms(lambda: plain(q, k, v, mask), reps=10)
+            row = {"ms": min(t_kern_1, t_kern_2), "plain_ms": min(t_plain_1, t_plain_2),
+                   **attention_bound(q, mask), "library_ms": sdpa_ms(q, k, v, mask)}
+            log(f"time {name} B={b} H={h} S={s} Dh={dh} ({masks} masks): kernel {t_kern_1}/"
+                f"{t_kern_2} ms, plain {t_plain_1}/{t_plain_2} ms (median of 10, plain-kernel-"
+                f"kernel-plain); scaled_dot_product_attention {row['library_ms']} ms; bound "
+                f"{row['bound_ms']} ms ({row['bound_by']}); device ms a call (CUDA graph of "
+                f"10 calls): kernel {device_ms(lambda: kern(q, k, v, mask))}, "
+                f"scaled_dot_product_attention {device_ms(sdpa_call(q, k, v, mask))}")
             # the JSON line reports d at bge-small's largest bucket, e at S=2048
-            if (name, s, dh) in (("attention_full", 512, 32), ("attention_flash", 2048, 32)):
-                out[name] = {"ms": min(t_kern_1, t_kern_2), "plain_ms": min(t_plain_1, t_plain_2),
-                             **attention_bound(q, mask), "library_ms": sdpa_ms(q, k, v, mask)}
-                log(f"bound {name} B={b} H={h} S={s} Dh={dh}: {out[name]['bound_ms']} ms "
-                    f"({out[name]['bound_by']}); scaled_dot_product_attention "
-                    f"{out[name]['library_ms']} ms")
-            log(f"time {name} B={b} H={h} S={s} Dh={dh}: kernel {t_kern_1}/{t_kern_2} ms, "
-                f"plain {t_plain_1}/{t_plain_2} ms (median of 10, plain-kernel-kernel-plain)")
+            if (name, s, dh, masks) in (("attention_full", 512, 32, "ragged"),
+                                        ("attention_flash", 2048, 32, "ragged")):
+                out[name] = row
         del q, k, v, mask, got, ref
         torch.cuda.empty_cache()
 
@@ -535,17 +596,21 @@ def packed_checks(device: str) -> dict:
     from codesearch_tpu_torch.ops import attention as att
     from codesearch_tpu_torch.ops import packed_attention as pa
 
-    # (B, H, S, P, timed, fused_qkv): the ablation's width for both P, its
-    # shortest bucket, ragged S, the sequence bound and the encoder's views
-    cases = [(256, 12, 512, 4, True, False), (256, 12, 512, 2, True, False),
-             (256, 12, 64, 4, False, False), (256, 12, 64, 2, False, False),
-             (4, 12, 100, 4, False, False), (4, 8, 1000, 2, False, False),
-             (2, 12, pa.PACKED_MAX_SEQ, 4, False, False), (256, 12, 512, 4, False, True)]
+    # (B, H, S, P, timed, fused_qkv, masks): the ablation's width for both P,
+    # its shortest bucket, ragged S, the sequence bound and the encoder's
+    # views, then the ablation's width on full masks and on masks with holes
+    cases = [(256, 12, 512, 4, True, False, "ragged"), (256, 12, 512, 2, True, False, "ragged"),
+             (256, 12, 64, 4, True, False, "ragged"), (256, 12, 64, 2, True, False, "ragged"),
+             (4, 12, 100, 4, False, False, "ragged"), (4, 8, 1000, 2, False, False, "ragged"),
+             (2, 12, pa.PACKED_MAX_SEQ, 4, False, False, "ragged"),
+             (256, 12, 512, 4, False, True, "ragged"),
+             (256, 12, 512, 4, True, False, "full"), (256, 12, 512, 2, True, False, "full"),
+             (256, 12, 512, 4, False, False, "holes"), (256, 12, 512, 2, False, False, "holes")]
     err = 0.0
     out: dict = {}
-    for i, (b, h, s, pack, timed, fused_qkv) in enumerate(cases):
+    for i, (b, h, s, pack, timed, fused_qkv, masks) in enumerate(cases):
         q, k, v, mask = attention_inputs(b, h, s, 32, seed=100 + i, device=device,
-                                         fused_qkv=fused_qkv)
+                                         fused_qkv=fused_qkv, masks=masks)
         got = pa.attention_packed(q, k, v, mask, pack)
         torch.cuda.synchronize()
         ref = pa.attention_packed_plain(q.contiguous(), k.contiguous(), v.contiguous(), mask,
@@ -555,14 +620,14 @@ def packed_checks(device: str) -> dict:
             att.attention_full_plain(q.contiguous(), k.contiguous(), v.contiguous(), mask), ref)
         finite = bool(torch.isfinite(got).all())
         layout = "views of a fused QKV projection" if fused_qkv else "contiguous"
-        log(f"kernel f attention_packed B={b} H={h} S={s} P={pack} ({layout}): max |out - "
-            f"plain| {e} (tol {ATTN_ATOL} + {ATTN_RTOL}|plain|), share of outputs differing "
-            f"{share:.2e} (limit {PACKED_SHARE_MAX}; d's order: max {d_err}, share "
+        log(f"kernel f attention_packed B={b} H={h} S={s} P={pack} ({layout}, {masks} masks): "
+            f"max |out - plain| {e} (tol {ATTN_ATOL} + {ATTN_RTOL}|plain|), share of outputs "
+            f"differing {share:.2e} (limit {PACKED_SHARE_MAX}; d's order: max {d_err}, share "
             f"{d_share:.2e}), all finite {finite}, fully masked row "
             f"{got[-1, 0, 0, :4].float().tolist()}")
         check(ok and finite and share <= PACKED_SHARE_MAX,
               f"attention_packed disagrees with its plain version at B={b} "
-              f"H={h} S={s} P={pack} ({layout})")
+              f"H={h} S={s} P={pack} ({layout}, {masks} masks)")
         check(d_share > PACKED_SHARE_MAX, f"the share limit does not tell d's rounding from "
               f"f's at B={b} H={h} S={s} P={pack}")
         err = max(err, e)
@@ -573,10 +638,12 @@ def packed_checks(device: str) -> dict:
             t_plain_2 = cuda_ms(lambda: pa.attention_packed_plain(q, k, v, mask, pack), reps=10)
             lib = sdpa_ms(q, k, v, mask)
             bnd = attention_bound(q, mask)
-            log(f"time attention_packed B={b} H={h} S={s} P={pack}: kernel {t_kern_1}/"
-                f"{t_kern_2} ms, plain {t_plain_1}/{t_plain_2} ms (median of 10, plain-kernel-"
-                f"kernel-plain); scaled_dot_product_attention {lib} ms; bound "
-                f"{bnd['bound_ms']} ms ({bnd['bound_by']})")
+            log(f"time attention_packed B={b} H={h} S={s} P={pack} ({masks} masks): kernel "
+                f"{t_kern_1}/{t_kern_2} ms, plain {t_plain_1}/{t_plain_2} ms (median of 10, "
+                f"plain-kernel-kernel-plain); scaled_dot_product_attention {lib} ms; bound "
+                f"{bnd['bound_ms']} ms ({bnd['bound_by']}); device ms a call (CUDA graph of "
+                f"10 calls): kernel {device_ms(lambda: pa.attention_packed(q, k, v, mask, pack))}, "
+                f"scaled_dot_product_attention {device_ms(sdpa_call(q, k, v, mask))}")
             # the JSON line reports P=4, the ablation's headline packing
             out.setdefault("attention_packed", {
                 "ms": min(t_kern_1, t_kern_2), "plain_ms": min(t_plain_1, t_plain_2),

@@ -9,74 +9,83 @@
 // All compute non-causal attention over a [B, H, S, Dh] bf16 batch with a
 // [B, S] padding mask added to the scores as (1 - m) * -1e30 (never -inf, so
 // a fully masked row stays finite: it averages V). Dh is 32 or 64 for d and
-// e, 32 for f.
+// e, 32 for f. Q, K, V and O may be strided views (last dimension
+// contiguous, other strides multiples of 8 elements), so the encoder hands
+// over its fused QKV projection without copies and takes O in [B, S, H, Dh]
+// order. Query rows past S are computed on zeros and not stored.
 //
 // What bounds them on an H100: per (batch, head) the score matrix is S x S,
 // 2*S*S*Dh flops each for QK^T and PV, against 3*S*Dh*2 bytes of Q, K, V.
 // At bge-small's S=512, Dh=32 that is ~170 flops per byte of K and V read,
-// below the card's ~295 bf16 flops per byte: what keeps these kernels fast is
-// never writing the S x S scores to device memory (the plain version writes
-// and rereads them several times in f32) and feeding the products to the
-// tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate).
+// below the card's ~295 bf16 flops per byte, so bytes bound them (about
+// 0.09 ms at B=256, H=12 on chip_smoke's ragged masks). What keeps them near
+// that is never writing the S x S scores to device memory, feeding both
+// products to the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate)
+// and keeping the scalar work per score small: at Dh=32 a score costs the
+// tensor cores 2 * 32 flops a product, 192 over the three products of d and
+// f, about as long as 5-10 FP32 instructions on the SM's CUDA cores, so the
+// exp and the bookkeeping around each score decide the time.
 //
-// Design. A CTA owns one (batch, head) and 64 query rows; each of its four
-// warps owns 16 rows and holds them as mma A-fragments in registers. K rows
-// sit in shared memory as [key][Dh] and V transposed as [Dh][key], so both
-// B-fragments are single 32-bit loads; rows are padded by 8 bf16 so that the
-// eight row groups of a fragment load hit eight different banks.
-//   d (full)   K and V of the whole sequence are staged in shared memory once.
-//              Exact softmax in two sweeps over the keys: the first takes the
-//              row max, the second forms p = exp(s - max) in f32, sums it,
-//              rounds p to bf16 (as _full_kernel casts p to V's dtype) and
-//              accumulates p @ V in f32; the sum divides at the end. Shared
-//              memory is (S*(Dh+8) + Dh*(S+8)) * 2 + 4*S bytes (S rounded up to
-//              16): the 227 KB a block may opt into on an H100 bounds S at 1552
-//              for Dh=32 and 832 for Dh=64. cs_attention_full_max_seq reports
-//              the bound for the current card; the Python wrapper sends longer
-//              sequences to e.
-//   e (flash)  K and V stream through shared memory in tiles of 64 keys with
-//              a running max and sum in f32 (_flash_kernel's online softmax).
-//              Its PV product keeps p near f32: p = hi + lo with hi and lo
-//              bf16, two products; the scores are (q . k) * scale, exact bf16
-//              products summed in f32, where _flash_kernel scales q first.
-// Keys past S (S is any length; the tiles are 16 or 64 keys) take p = 0 and
-// do not enter the max; query rows past S are computed on zeros and not
-// stored. Q, K, V and O may be strided views (last dimension contiguous,
-// other strides multiples of 8 elements), so the encoder hands over its fused
-// QKV projection without copies and takes O in [B, S, H, Dh] order.
+// d and f: one two-sweep body (attention_two_sweep<DH, P, W, kNormaliseFirst>).
+//   Both compute softmax exactly in two sweeps over the keys, because both
+//   round p to bf16 before p @ V against the exact row max: _full_kernel casts
+//   p = exp(s - max) and divides by the f32 sum after the product (d:
+//   P = 1, Dh 32 or 64); _packed_kernel divides first, p = e / max(sum,
+//   1e-30), then casts (f: P = 2 or 4 heads of one head group, Dh = 32; the
+//   TPU kernel's block-diagonal packing only filled the MXU and is not
+//   carried over). A CTA owns one batch row, P heads and W * 16 query rows;
+//   each head has its own W warps of 16 rows, holding them as mma
+//   A-fragments. Sweep 1 takes the row max (f: and the running sum of
+//   exp); sweep 2 forms p, rounds it to bf16 and accumulates p @ V in f32
+//   (d: and the f32 sum of p). The epilogue divides by the sum (d) or by 1
+//   (f, already normalised), rounds to bf16 and stores. Three costs decide
+//   the time, and this is what the body does about each:
+//   - Work on padding keys. The CTA reads its mask row once, into the bias
+//     of every key in shared memory, and takes n_keys = 1 + its last nonzero
+//     key, or S for a fully masked row (which must average all S values of
+//     V). Both sweeps run only over the 64-key tiles below n_keys, with K and
+//     V zero-filled, not read, at and past n_keys. That is exact for 0/1
+//     masks, holes included: beside a valid key a key of bias -1e30 adds
+//     exactly 0 to the max, the sum and p @ V.
+//   - Staging. K (sweep 1), then K and V (sweep 2), stream through a
+//     double-buffered ring of 64-key tiles with cp.async (zero-fill past
+//     n_keys), overlapped with the previous tile's compute. Sweep 1 also
+//     loads V of the last two tiles and sweep 2 walks the tiles backwards,
+//     starting on the two still resident, so a row of up to 128 keys reads
+//     K and V once. K and V sit as [key][Dh + 8] rows (the 8 bf16 of
+//     padding put the eight rows of a fragment load in eight bank groups);
+//     the B-fragments of QK^T come from ldmatrix, those of PV from
+//     ldmatrix.trans, so nothing is transposed by scalar stores. Shared
+//     memory is 4 * P * 64 * (Dh + 8) * 2 bytes plus 4 bytes a key for the
+//     bias: at S=512 22 KB for d at Dh=32, 38 KB at Dh=64, 82 KB for f at
+//     P=4. No global load waits inside the tile loops.
+//   - Scalar work per score. Scores stay in the log2 domain: scale * log2(e)
+//     is one constant, the mask bias is kept in shared memory already times
+//     log2(e) (keys past S: -inf, which exp2 turns into 0 and which never
+//     wins a max: key 0 is always present and finite), so an exponent is
+//     one FMA, one subtraction of the row max and one ex2.approx.ftz, and no
+//     per-element bounds compare remains. Each thread keeps the max (f: and
+//     sum) of its own keys across tiles; the four threads of a row merge
+//     once, after sweep 1. f pays a second exp per score (sweep 1's sum) and
+//     a multiply by the reciprocal of the sum.
+//   W (warps, so 16-row slices, per head) was chosen on an H100 with
+//   examples/attention_variants.py (ptxas registers and spills, the CTAs an
+//   SM they allow, and times at W = 2, 4, 8; PERF.md section 6). d takes
+//   W = 4: 80 registers a thread, 6 CTAs (24 warps) an SM at Dh=32, 132
+//   registers and 3 CTAs at Dh=64; W = 8 ties at S=512 and loses at S=64,
+//   the encoder's common bucket, where half its warps idle. f at P = 4 takes
+//   W = 8: 1,024 threads held to 64 registers (36 bytes spilled) give 32
+//   warps an SM, where W = 4 needs 101 registers and fits one 512-thread CTA
+//   (16 warps). f at P = 2 takes W = 4: 80 registers (8 bytes spilled), 3
+//   CTAs (24 warps) an SM.
 //
-//   f (packed) The TPU kernel packs P heads into one block-diagonal product
-//              only to fill the MXU's 128-deep array (4x the MACs at P=4);
-//              that construction is not carried over. On Hopper packing means
-//              that one CTA owns the P heads (P = 2 or 4) of one head group of
-//              one batch element, for 64 query rows: the mask row is loaded
-//              once for the P heads, the PV output tile is P * 32 wide, and the
-//              CTA writes whole [rows, P * 32] slices of the [B, S, H, Dh]
-//              output. Each head has its own group of four warps (P * 4 warps
-//              a CTA), so a thread holds one head's fragments, as in d and e:
-//              a first version that looped over the P heads in every warp
-//              held P heads' accumulators per thread, and at that register
-//              count it took 6.1 ms at P=4 against d's 2.25 ms (B=256, H=12,
-//              S=512; H100 80GB HBM3 at 700 W). The
-//              TPU kernel holds the whole [S, P * S] score tile; here K and V
-//              of P heads at S=512 alone are 256 KB, past the 227 KB a block
-//              may use, so K and V stream through shared memory in tiles of 64
-//              keys, double-buffered with cp.async (zero-filled past S). f
-//              normalises before the bf16 cast (p = e / max(sum, 1e-30), then
-//              bf16(p) @ V), so the exact row max and sum must be known before
-//              any p @ V: sweep 1 streams K for a running max and sum in f32;
-//              sweep 2 streams K and V, forms p (e times the rounded
-//              reciprocal of the sum, within one f32 ulp of the quotient),
-//              rounds it to bf16 and accumulates p @ V in f32 with mma.sync. K
-//              and V sit in shared memory as [key][Dh + 8]; V's B-fragments
-//              come from ldmatrix.trans. Bound on this card: at bge-small's
-//              shapes (B=256, H=12, S=512) f needs 103 GFLOP and moves 403 MB
-//              of Q, K, V and O, so memory bounds it (0.120 ms at 3.35 TB/s
-//              against 0.104 ms at 989 TFLOP/s). This design computes q . k
-//              and exp twice per score and sits well above that bound; a
-//              simple kernel that is right comes first (wgmma/TMA are later
-//              work). S is bounded only by the index arithmetic; the wrapper
-//              holds it to PACKED_MAX_SEQ, the longest sequence it is checked at.
+// e (flash): K and V stream through shared memory in tiles of 64 keys with
+//   a running max and sum in f32 (_flash_kernel's online softmax). Its PV
+//   product keeps p near f32: p = hi + lo with hi and lo bf16, two products;
+//   the scores are (q . k) * scale, exact bf16 products summed in f32, where
+//   _flash_kernel scales q first. K sits in shared memory as [key][Dh] and V
+//   transposed as [Dh][key], so both B-fragments are single 32-bit loads.
+//   Keys past S take p = 0 and do not enter the max.
 //
 // Every kernel launches on the caller's stream and allocates nothing; every
 // entry point returns the CUDA error of its launch (0 on success, -1 for a
@@ -84,6 +93,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -92,11 +102,18 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr float kMaskNeg = -1.0e30f;  // _NEG_INF of attention.py
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerCta = kWarps * 16;
 constexpr int kPad = 8;        // bf16 of padding per shared-memory row
 constexpr int kFlashKeys = 64; // keys per streamed tile of e
+constexpr int kKeys = 64;      // keys per streamed tile of d and f
+// warps (16 query rows each) per head: d, f at P = 2, f at P = 4
+constexpr int kFullWarps = 4;
+constexpr int kPackedWarpsP2 = 4;
+constexpr int kPackedWarpsP4 = 8;
+constexpr int kPackedDh = 32;
 constexpr int kErrBadArg = -1;
 
 // Element strides of the [B, H, S, Dh] views (the Dh stride is 1).
@@ -134,6 +151,13 @@ __device__ __forceinline__ float row_max4(float x) {
 __device__ __forceinline__ float row_sum4(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 2^x, approximate (2 ulp), subnormal results flushed to 0; 2^-inf = 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // The warp's 16 query rows [row0, row0 + 16) as A-fragments, zeros past S.
@@ -205,83 +229,6 @@ __device__ __forceinline__ void store_o(bf16* og, long long os, int row0, int S,
       *reinterpret_cast<uint32_t*>(og + rb * os + c) =
           pack_bf16(__fdiv_rn(acc[nt][2], db), __fdiv_rn(acc[nt][3], db));
   }
-}
-
-// ---- d: whole sequence in shared memory, exact two-sweep softmax ----------
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-attention_full(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const float* __restrict__ mask,
-               bf16* __restrict__ o, Layout L, int H, int S, int n_qblocks, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int s16 = (S + 15) & ~15;
-  const int vstride = s16 + kPad;
-  bf16* ks = reinterpret_cast<bf16*>(smem);     // [s16][DH + kPad]
-  bf16* vt = ks + s16 * (DH + kPad);            // [DH][s16 + kPad]
-  float* bias = reinterpret_cast<float*>(vt + DH * vstride);  // [s16]
-  const int qb = blockIdx.x % n_qblocks, bh = blockIdx.x / n_qblocks;
-  const int b = bh / H, h = bh % H;
-  stage_kv<DH>(k + b * L.kb + h * L.kh, L.ks, v + b * L.vb + h * L.vh, L.vs, 0, s16, S, ks, vt,
-               vstride);
-  for (int j = threadIdx.x; j < s16; j += blockDim.x)
-    bias[j] = j < S ? mask_bias(mask[(size_t)b * S + j]) : 0.0f;
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = qb * kRowsPerCta + warp * 16;
-  if (row0 >= S) return;  // no barrier follows
-  uint32_t qa[DH / 16][4];
-  load_q<DH>(q + b * L.qb + h * L.qh, L.qs, row0, S, g, t, qa);
-
-  // sweep 1: the exact row max (keys past S excluded)
-  float ma = -INFINITY, mb = -INFINITY;
-  for (int n0 = 0; n0 < s16; n0 += 8) {
-    float c[4];
-    score_tile<DH>(qa, ks, n0, g, t, c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = n0 + 2 * t + (i & 1);
-      if (key < S) {
-        const float s = __fadd_rn(__fmul_rn(c[i], scale), bias[key]);
-        if (i < 2) ma = fmaxf(ma, s); else mb = fmaxf(mb, s);
-      }
-    }
-  }
-  ma = row_max4(ma);
-  mb = row_max4(mb);
-
-  // sweep 2: p = exp(s - max), its f32 sum, and bf16(p) @ V in f32
-  float acc[DH / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
-  float la = 0.0f, lb = 0.0f;
-  for (int kc = 0; kc < s16; kc += 16) {
-    float p[2][4];
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float c[4];
-      score_tile<DH>(qa, ks, kc + 8 * half, g, t, c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = kc + 8 * half + 2 * t + (i & 1);
-        float e = 0.0f;
-        if (key < S) e = expf(__fadd_rn(__fmul_rn(c[i], scale), bias[key]) - (i < 2 ? ma : mb));
-        p[half][i] = e;
-        if (i < 2) la += e; else lb += e;
-      }
-    }
-    const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
-                            pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
-#pragma unroll
-    for (int nt = 0; nt < DH / 8; ++nt) {
-      const bf16* vr = vt + (nt * 8 + g) * vstride + kc + 2 * t;
-      mma_16816(acc[nt], pa, ld32(vr), ld32(vr + 8));
-    }
-  }
-  la = row_sum4(la);
-  lb = row_sum4(lb);
-  store_o<DH>(o + b * L.ob + h * L.oh, L.os, row0, S, g, t, acc, la, lb);
 }
 
 // ---- e: K/V tiles of 64 keys, online softmax in f32 -----------------------
@@ -379,11 +326,7 @@ attention_flash(const bf16* __restrict__ q, const bf16* __restrict__ k,
               fmaxf(lb, 1e-30f));
 }
 
-// ---- f: P heads of one group per CTA, K/V streamed, normalise-then-cast ---
-constexpr int kPackedDh = 32;
-constexpr int kPackedKeys = 64;              // keys per streamed tile of f
-constexpr int kPackedRow = kPackedDh + kPad; // bf16 per shared K or V row
-
+// ---- d and f: one streamed two-sweep body ---------------------------------
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   const int n = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled, src not read
@@ -397,6 +340,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Four 8x8 bf16 tiles from shared memory, lane l naming row (l & 7) of tile
+// (l >> 3); r[i] holds tile i's row g, columns 2t, 2t + 1.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 // Four transposed 8x8 bf16 tiles: from [key][Dh + kPad] rows of V, lane l
 // naming row (l & 15) at column (l >> 4) * 8, r0 r1 are the B-fragments
 // (keys 0-7, 8-15) of one 8-wide column tile and r2 r3 those of the next.
@@ -407,153 +359,217 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* 
                : "r"(a));
 }
 
-// Queues the copy of keys [k0, k0 + kPackedKeys) of the P heads' K (and V)
-// into one buffer, zeros past S, and writes the tile's mask bias (loaded once
-// for the P heads).
-template <int P>
-__device__ __forceinline__ void packed_tile(const bf16* kg, const bf16* vg, const Layout& L,
-                                            const float* mrow, int k0, int S, bf16* kd,
-                                            bf16* vd, float* bias, bool with_v) {
-  constexpr int kChunks = kPackedDh / 8;  // 16-byte chunks per key row
-  for (int i = threadIdx.x; i < P * kPackedKeys * kChunks; i += P * kThreads) {
+// Raw scores q . k of the warp's 16 rows against keys [n0, n0 + 8) of a
+// [key][DH + kPad] K tile; one ldmatrix.x4 gives the B-fragments of 32
+// head dimensions (tile i: dimensions 8i..8i+7).
+template <int DH>
+__device__ __forceinline__ void score_tile_ldm(const uint32_t (&qa)[DH / 16][4], const bf16* ks,
+                                               int n0, int lane, float (&c)[4]) {
+  c[0] = c[1] = c[2] = c[3] = 0.0f;
+  const bf16* kr = ks + (n0 + (lane & 7)) * (DH + kPad) + (lane >> 3) * 8;
+#pragma unroll
+  for (int kq = 0; kq < DH / 32; ++kq) {
+    uint32_t kb[4];
+    ldmatrix_x4(kb, kr + kq * 32);
+    mma_16816(c, qa[2 * kq], kb[0], kb[1]);
+    mma_16816(c, qa[2 * kq + 1], kb[2], kb[3]);
+  }
+}
+
+__host__ __device__ __forceinline__ int keys_padded(int S) {
+  return (S + kKeys - 1) / kKeys * kKeys;
+}
+
+template <int DH, int P>
+size_t two_sweep_smem(int S) {
+  return (size_t)4 * P * kKeys * (DH + kPad) * sizeof(bf16) +
+         (size_t)keys_padded(S) * sizeof(float);
+}
+
+// Queues the copy of keys [k0, k0 + kKeys) of the P heads' K (and V) into
+// one buffer, zeros at and past n_copy.
+template <int DH, int P, int NT>
+__device__ __forceinline__ void copy_tile(const bf16* kg, const bf16* vg, const Layout& L,
+                                          int k0, int n_copy, bf16* kd, bf16* vd, bool with_v) {
+  constexpr int kChunks = DH / 8;  // 16-byte chunks per key row
+  for (int i = threadIdx.x; i < P * kKeys * kChunks; i += NT) {
     const int c = (i % kChunks) * 8;
-    const int r = (i / kChunks) % kPackedKeys;
-    const int p = i / (kChunks * kPackedKeys);
-    const bool ok = k0 + r < S;
+    const int r = (i / kChunks) % kKeys;
+    const int p = i / (kChunks * kKeys);
+    const bool ok = k0 + r < n_copy;
     const long long key = ok ? k0 + r : 0;
-    const int at = (p * kPackedKeys + r) * kPackedRow + c;
+    const int at = (p * kKeys + r) * (DH + kPad) + c;
     cp_async16(kd + at, kg + p * L.kh + key * L.ks + c, ok);
     if (with_v) cp_async16(vd + at, vg + p * L.vh + key * L.vs + c, ok);
   }
-  for (int j = threadIdx.x; j < kPackedKeys; j += P * kThreads)
-    bias[j] = k0 + j < S ? mask_bias(mrow[k0 + j]) : 0.0f;
 }
 
-template <int P>
-__global__ void __launch_bounds__(P * kThreads)
-attention_packed(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const float* __restrict__ mask,
-                 bf16* __restrict__ o, Layout L, int G, int S, int n_qblocks, float scale) {
-  constexpr int D = kPackedDh;
-  constexpr int kTile = P * kPackedKeys * kPackedRow;  // bf16 of one K (or V) buffer
+template <int DH, int P, int W, bool kNormaliseFirst>
+__global__ void __launch_bounds__(P * W * 32)
+attention_two_sweep(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const float* __restrict__ mask,
+                    bf16* __restrict__ o, Layout L, int G, int S, int n_qblocks,
+                    float scale_log2) {
+  constexpr int NT = P * W * 32;
+  constexpr int kTile = P * kKeys * (DH + kPad);  // bf16 of one K (or V) buffer
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* kbuf = reinterpret_cast<bf16*>(smem);                 // [2][P][64][D + kPad]
-  bf16* vbuf = kbuf + 2 * kTile;                              // [2][P][64][D + kPad]
-  float* bias = reinterpret_cast<float*>(vbuf + 2 * kTile);   // [2][64]
+  bf16* kbuf = reinterpret_cast<bf16*>(smem);                // [2][P][kKeys][DH + kPad]
+  bf16* vbuf = kbuf + 2 * kTile;                             // [2][P][kKeys][DH + kPad]
+  float* bias = reinterpret_cast<float*>(vbuf + 2 * kTile);  // [keys_padded(S)]
+  __shared__ int last_of_warp[NT / 32];
   const int qb = blockIdx.x % n_qblocks, bg = blockIdx.x / n_qblocks;
   const int b = bg / G, h0 = (bg % G) * P;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int p = warp / kWarps;  // the warp's head within the group
-  const int row0 = qb * kRowsPerCta + (warp % kWarps) * 16;
+  const int p = warp / W;  // the warp's head within the group
+  const int row0 = qb * (W * 16) + (warp % W) * 16;
   const bool active = row0 < S;  // warp-uniform; idle warps still copy and join barriers
-  const int n_tiles = (S + kPackedKeys - 1) / kPackedKeys;
-  const int head_rows = p * kPackedKeys * kPackedRow;  // this head's K/V rows in a buffer
+  const int head_rows = p * kKeys * (DH + kPad);  // this head's K/V rows in a buffer
   const bf16* kg = k + b * L.kb + h0 * L.kh;
   const bf16* vg = v + b * L.vb + h0 * L.vh;
   const float* mrow = mask + (size_t)b * S;
 
-  uint32_t qa[D / 16][4];
-  load_q<D>(q + b * L.qb + (h0 + p) * L.qh, L.qs, row0, S, g, t, qa);
+  uint32_t qa[DH / 16][4];
+  load_q<DH>(q + b * L.qb + (h0 + p) * L.qh, L.qs, row0, S, g, t, qa);
 
-  // sweep 1: running row max and sum of exp in f32 (keys past S excluded)
-  float ma = -INFINITY, mb = -INFINITY, la = 0.0f, lb = 0.0f;
-  packed_tile<P>(kg, vg, L, mrow, 0, S, kbuf, vbuf, bias, false);
+  // the mask bias of every key in the log2 domain (-inf past S), and the
+  // keys that count: up to the row's last valid one, all S if it has none
+  int last = -1;
+#pragma unroll 4
+  for (int j = threadIdx.x; j < keys_padded(S); j += NT) {
+    float bj = -INFINITY;
+    if (j < S) {
+      const float m = mrow[j];
+      if (m != 0.0f) last = j;
+      bj = __fmul_rn(mask_bias(m), kLog2e);
+    }
+    bias[j] = bj;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
+  if (lane == 0) last_of_warp[warp] = last;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) last = max(last, last_of_warp[w]);
+  const int n_keys = last < 0 ? S : last + 1;
+  const int n_tiles = (n_keys + kKeys - 1) / kKeys;
+
+  // Tile i lives in buffer i & 1 in both sweeps. Sweep 1 also loads V of the
+  // last two tiles, and sweep 2 walks the tiles backwards, so it starts on
+  // the two that are still resident (a row of up to 128 keys reads K and V
+  // once). Every iteration commits a copy group, empty or not, so waiting
+  // for all but the newest group is what makes the current tile arrive.
+  copy_tile<DH, P, NT>(kg, vg, L, 0, n_keys, kbuf, vbuf, n_tiles <= 2);
   cp_async_commit();
+
+  // sweep 1: per thread, the max over its keys of the scores in the log2
+  // domain (f: and the sum of 2^(x - max), rescaled as the max grows), in
+  // steps of 32 keys
+  float ma = -FLT_MAX, mb = -FLT_MAX, la = 0.0f, lb = 0.0f;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int buf = tile & 1;
-    if (tile + 1 < n_tiles) {
-      packed_tile<P>(kg, vg, L, mrow, (tile + 1) * kPackedKeys, S, kbuf + (buf ^ 1) * kTile,
-                     vbuf, bias + (buf ^ 1) * kPackedKeys, false);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    if (tile + 1 < n_tiles)
+      copy_tile<DH, P, NT>(kg, vg, L, (tile + 1) * kKeys, n_keys, kbuf + (buf ^ 1) * kTile,
+                           vbuf + (buf ^ 1) * kTile, tile + 1 >= n_tiles - 2);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
     if (active) {
-      const int k0 = tile * kPackedKeys;
-      const float* bs = bias + buf * kPackedKeys;
+      const float* bs = bias + tile * kKeys;
       const bf16* ks = kbuf + buf * kTile + head_rows;
-      float s[kPackedKeys / 8][4];
-      float ca = -INFINITY, cb = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < kPackedKeys / 8; ++j) {
-        score_tile<D>(qa, ks, 8 * j, g, t, s[j]);
+      for (int k32 = 0; k32 < kKeys; k32 += 32) {
+        float x[4][4];
+        float ca = -FLT_MAX, cb = -FLT_MAX;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = 8 * j + 2 * t + (i & 1);
-          const float x = __fadd_rn(__fmul_rn(s[j][i], scale), bs[key]);
-          s[j][i] = x;
-          if (k0 + key < S) {
-            if (i < 2) ca = fmaxf(ca, x); else cb = fmaxf(cb, x);
-          }
+        for (int j = 0; j < 4; ++j) {
+          score_tile_ldm<DH>(qa, ks, k32 + 8 * j, lane, x[j]);
+          const float2 bj = *reinterpret_cast<const float2*>(bs + k32 + 8 * j + 2 * t);
+          x[j][0] = fmaf(x[j][0], scale_log2, bj.x);
+          x[j][1] = fmaf(x[j][1], scale_log2, bj.y);
+          x[j][2] = fmaf(x[j][2], scale_log2, bj.x);
+          x[j][3] = fmaf(x[j][3], scale_log2, bj.y);
+          ca = fmaxf(ca, fmaxf(x[j][0], x[j][1]));
+          cb = fmaxf(cb, fmaxf(x[j][2], x[j][3]));
         }
-      }
-      const float na = fmaxf(ma, row_max4(ca)), nb = fmaxf(mb, row_max4(cb));
-      float ra = 0.0f, rb = 0.0f;
+        const float na = fmaxf(ma, ca), nb = fmaxf(mb, cb);
+        if (kNormaliseFirst) {
+          float ra = 0.0f, rb = 0.0f;
 #pragma unroll
-      for (int j = 0; j < kPackedKeys / 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (k0 + 8 * j + 2 * t + (i & 1) < S) {
-            if (i < 2) ra += expf(s[j][i] - na); else rb += expf(s[j][i] - nb);
+          for (int j = 0; j < 4; ++j) {
+            ra += ex2(x[j][0] - na) + ex2(x[j][1] - na);
+            rb += ex2(x[j][2] - nb) + ex2(x[j][3] - nb);
           }
-      la = la * expf(ma - na) + row_sum4(ra);
-      lb = lb * expf(mb - nb) + row_sum4(rb);
-      ma = na;
-      mb = nb;
+          la = la * ex2(ma - na) + ra;
+          lb = lb * ex2(mb - nb) + rb;
+        }
+        ma = na;
+        mb = nb;
+      }
     }
     __syncthreads();  // this buffer is consumed before the next copy into it
   }
-
-  // sweep 2: p = exp(s - max) / max(sum, 1e-30) in f32, rounded to bf16, and
-  // p @ V accumulated in f32
-  const float ia = __frcp_rn(fmaxf(la, 1e-30f)), ib = __frcp_rn(fmaxf(lb, 1e-30f));
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
-  packed_tile<P>(kg, vg, L, mrow, 0, S, kbuf, vbuf, bias, true);
-  cp_async_commit();
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < n_tiles) {
-      packed_tile<P>(kg, vg, L, mrow, (tile + 1) * kPackedKeys, S, kbuf + (buf ^ 1) * kTile,
-                     vbuf + (buf ^ 1) * kTile, bias + (buf ^ 1) * kPackedKeys, true);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // the four threads of a row merge: the max, and f's sum rescaled to it
+  {
+    const float ra = row_max4(ma), rb = row_max4(mb);
+    if (kNormaliseFirst) {
+      la = row_sum4(la * ex2(ma - ra));
+      lb = row_sum4(lb * ex2(mb - rb));
     }
+    ma = ra;
+    mb = rb;
+  }
+
+  // sweep 2, last tile first: p = 2^(x - max) (f: times the reciprocal of
+  // the sum), rounded to bf16, and p @ V in f32 (d: and the f32 sum of p)
+  const float ia = kNormaliseFirst ? __frcp_rn(fmaxf(la, 1e-30f)) : 1.0f;
+  const float ib = kNormaliseFirst ? __frcp_rn(fmaxf(lb, 1e-30f)) : 1.0f;
+  float sa = 0.0f, sb = 0.0f;
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  for (int tile = n_tiles - 1; tile >= 0; --tile) {
+    const int buf = tile & 1;
+    if (tile >= 1 && tile - 1 < n_tiles - 2)  // not resident from sweep 1
+      copy_tile<DH, P, NT>(kg, vg, L, (tile - 1) * kKeys, n_keys, kbuf + (buf ^ 1) * kTile,
+                           vbuf + (buf ^ 1) * kTile, true);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
     if (active) {
-      const int k0 = tile * kPackedKeys;
-      const float* bs = bias + buf * kPackedKeys;
+      const float* bs = bias + tile * kKeys;
       const bf16* ks = kbuf + buf * kTile + head_rows;
       const bf16* vs = vbuf + buf * kTile + head_rows;
 #pragma unroll
-      for (int kc = 0; kc < kPackedKeys; kc += 16) {
+      for (int kc = 0; kc < kKeys; kc += 16) {
         float pr[2][4];
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          float c[4];
-          score_tile<D>(qa, ks, kc + 8 * half, g, t, c);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int key = kc + 8 * half + 2 * t + (i & 1);
-            float e = 0.0f;
-            if (k0 + key < S)
-              e = __fmul_rn(expf(__fadd_rn(__fmul_rn(c[i], scale), bs[key]) - (i < 2 ? ma : mb)),
-                            i < 2 ? ia : ib);
-            pr[half][i] = e;
+          score_tile_ldm<DH>(qa, ks, kc + 8 * half, lane, pr[half]);
+          const float2 bj = *reinterpret_cast<const float2*>(bs + kc + 8 * half + 2 * t);
+          float e[4];
+          e[0] = ex2(fmaf(pr[half][0], scale_log2, bj.x) - ma);
+          e[1] = ex2(fmaf(pr[half][1], scale_log2, bj.y) - ma);
+          e[2] = ex2(fmaf(pr[half][2], scale_log2, bj.x) - mb);
+          e[3] = ex2(fmaf(pr[half][3], scale_log2, bj.y) - mb);
+          if (kNormaliseFirst) {
+            e[0] *= ia;
+            e[1] *= ia;
+            e[2] *= ib;
+            e[3] *= ib;
+          } else {
+            sa += e[0] + e[1];
+            sb += e[2] + e[3];
           }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pr[half][i] = e[i];
         }
         const uint32_t pa[4] = {pack_bf16(pr[0][0], pr[0][1]), pack_bf16(pr[0][2], pr[0][3]),
                                 pack_bf16(pr[1][0], pr[1][1]), pack_bf16(pr[1][2], pr[1][3])};
 #pragma unroll
-        for (int np = 0; np < D / 16; ++np) {
+        for (int np = 0; np < DH / 16; ++np) {
           uint32_t vb[4];
-          ldmatrix_x4_trans(vb, vs + (kc + (lane & 15)) * kPackedRow + np * 16 + (lane >> 4) * 8);
+          ldmatrix_x4_trans(vb, vs + (kc + (lane & 15)) * (DH + kPad) + np * 16 + (lane >> 4) * 8);
           mma_16816(acc[2 * np], pa, vb[0], vb[1]);
           mma_16816(acc[2 * np + 1], pa, vb[2], vb[3]);
         }
@@ -562,26 +578,10 @@ attention_packed(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
   if (!active) return;
-  const int ra = row0 + g, rb = row0 + g + 8;
-  bf16* og = o + b * L.ob + (h0 + p) * L.oh;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int c = nt * 8 + 2 * t;
-    if (ra < S)
-      *reinterpret_cast<uint32_t*>(og + ra * L.os + c) = pack_bf16(acc[nt][0], acc[nt][1]);
-    if (rb < S)
-      *reinterpret_cast<uint32_t*>(og + rb * L.os + c) = pack_bf16(acc[nt][2], acc[nt][3]);
-  }
-}
-
-size_t packed_smem_bytes(int pack) {
-  return (size_t)4 * pack * kPackedKeys * kPackedRow * sizeof(bf16) +
-         2 * kPackedKeys * sizeof(float);
-}
-
-size_t full_smem_bytes(int S, int dh) {
-  const size_t s16 = (size_t)((S + 15) & ~15);
-  return s16 * (dh + kPad) * 2 + (size_t)dh * (s16 + kPad) * 2 + s16 * 4;
+  // d divides by the f32 sum of p; f's p is normalised already (x / 1 = x)
+  const float da = kNormaliseFirst ? 1.0f : row_sum4(sa);
+  const float db = kNormaliseFirst ? 1.0f : row_sum4(sb);
+  store_o<DH>(o + b * L.ob + (h0 + p) * L.oh, L.os, row0, S, g, t, acc, da, db);
 }
 
 bool bad_args(const void* q, const void* k, const void* v, const void* o,
@@ -598,17 +598,20 @@ Layout layout_of(const long long* st) {
                 st[6], st[7], st[8], st[9], st[10], st[11]};
 }
 
-template <int DH>
-int launch_full(const void* q, const void* k, const void* v, const void* mask, void* o,
-                const Layout& L, int B, int H, int S, float scale, cudaStream_t s) {
-  const size_t smem = full_smem_bytes(S, DH);
-  cudaError_t e = cudaFuncSetAttribute(attention_full<DH>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int nqb = (S + kRowsPerCta - 1) / kRowsPerCta;
-  attention_full<DH><<<B * H * nqb, kThreads, smem, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (bf16*)o, L, H, S, nqb,
-      scale);
+template <int DH, int P, int W, bool kNormaliseFirst>
+int launch_two_sweep(const void* q, const void* k, const void* v, const void* mask, void* o,
+                     const Layout& L, int B, int H, int S, float scale, cudaStream_t s) {
+  const size_t smem = two_sweep_smem<DH, P>(S);
+  auto kernel = attention_two_sweep<DH, P, W, kNormaliseFirst>;
+  if (smem > 48 * 1024) {  // above the default a launch may ask for
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int nqb = (S + W * 16 - 1) / (W * 16);
+  kernel<<<B * (H / P) * nqb, P * W * 32, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (bf16*)o, L, H / P, S,
+      nqb, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -622,48 +625,22 @@ int launch_flash(const void* q, const void* k, const void* v, const void* mask, 
   return (int)cudaGetLastError();
 }
 
-template <int P>
-int launch_packed(const void* q, const void* k, const void* v, const void* mask, void* o,
-                  const Layout& L, int B, int H, int S, float scale, cudaStream_t s) {
-  const size_t smem = packed_smem_bytes(P);
-  cudaError_t e = cudaFuncSetAttribute(attention_packed<P>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int nqb = (S + kRowsPerCta - 1) / kRowsPerCta;
-  attention_packed<P><<<B * (H / P) * nqb, P * kThreads, smem, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (bf16*)o, L, H / P, S,
-      nqb, scale);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// Kernel d's bound on S at head size dh on the current device: the longest
-// multiple of 16 whose shared memory fits what a block may opt into; -1 for a
-// bad dh or a CUDA error.
-int cs_attention_full_max_seq(int dh) {
-  int dev, limit;
-  if ((dh != 32 && dh != 64) || cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-          cudaSuccess)
-    return kErrBadArg;
-  int s = 0;
-  while (full_smem_bytes(s + 16, dh) <= (size_t)limit) s += 16;
-  return s;
-}
-
 // q, k, v, o: bf16 [B, H, S, dh] views with element strides st[0..11] =
-// (b, h, s) of q, k, v, o; mask: f32 [B, S] contiguous, 1 = valid key.
+// (b, h, s) of q, k, v, o; mask: f32 [B, S] contiguous, 1 = valid key, 0 =
+// padding (d and f skip the keys past a row's last nonzero one).
 int cs_attention_full(const void* q, const void* k, const void* v, const void* mask, void* o,
                       const long long* st, int B, int H, int S, int dh, float scale,
                       void* stream) {
   if (bad_args(q, k, v, o, st, B, H, S, dh)) return kErrBadArg;
   const Layout L = layout_of(st);
   cudaStream_t s = (cudaStream_t)stream;
-  if (dh == 32) return launch_full<32>(q, k, v, mask, o, L, B, H, S, scale, s);
-  return launch_full<64>(q, k, v, mask, o, L, B, H, S, scale, s);
+  if (dh == 32) return launch_two_sweep<32, 1, kFullWarps, false>(q, k, v, mask, o, L, B, H, S,
+                                                                  scale, s);
+  return launch_two_sweep<64, 1, kFullWarps, false>(q, k, v, mask, o, L, B, H, S, scale, s);
 }
 
 int cs_attention_flash(const void* q, const void* k, const void* v, const void* mask, void* o,
@@ -686,8 +663,11 @@ int cs_attention_packed(const void* q, const void* k, const void* v, const void*
     return kErrBadArg;
   const Layout L = layout_of(st);
   cudaStream_t s = (cudaStream_t)stream;
-  if (pack == 4) return launch_packed<4>(q, k, v, mask, o, L, B, H, S, scale, s);
-  return launch_packed<2>(q, k, v, mask, o, L, B, H, S, scale, s);
+  if (pack == 4)
+    return launch_two_sweep<kPackedDh, 4, kPackedWarpsP4, true>(q, k, v, mask, o, L, B, H, S,
+                                                                scale, s);
+  return launch_two_sweep<kPackedDh, 2, kPackedWarpsP2, true>(q, k, v, mask, o, L, B, H, S,
+                                                              scale, s);
 }
 
 }  // extern "C"

@@ -119,23 +119,26 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a kernel library and declare its entry points' signatures."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.cs_error_string.argtypes = [ctypes.c_int]
+    lib.cs_error_string.restype = ctypes.c_char_p
+    lib.cs_scratch_entries.argtypes = [_I, _I, _I, _I]
+    lib.cs_scratch_entries.restype = ctypes.c_longlong
+    return lib
+
+
 def load(verbose: bool = False) -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build(verbose)))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.cs_error_string.argtypes = [ctypes.c_int]
-            lib.cs_error_string.restype = ctypes.c_char_p
-            lib.cs_scratch_entries.argtypes = [_I, _I, _I, _I]
-            lib.cs_scratch_entries.restype = ctypes.c_longlong
-            lib.cs_attention_full_max_seq.argtypes = [_I]
-            lib.cs_attention_full_max_seq.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind(build(verbose))
         return _lib
 
 

@@ -8,8 +8,9 @@ public function.
 - ``reference_attention``: the plain version of the XLA reference, with the
   ``window`` (sliding window) and ``bias2d`` (ALiBi) options.
 - ``attention_full`` (kernel d, ``pallas_attention_full``): the whole
-  sequence per (batch, head), single-pass softmax, ``p`` rounded to V's
-  dtype before ``p @ V``, the sum divided after. Beside it its plain twin.
+  sequence per (batch, head), exact softmax in two sweeps over the keys,
+  ``p`` rounded to V's dtype before ``p @ V``, the sum divided after.
+  Beside it its plain twin.
 - ``attention_flash`` (kernel e, ``pallas_attention``): the same function
   with K and V streamed in blocks of 64 keys under an online softmax, all in
   f32. Beside it its plain twin.
@@ -21,11 +22,15 @@ kernels take bf16 Q, K, V with Dh 32 or 64, any S, and views whose last
 dimension is contiguous and whose other strides are multiples of 8
 elements, so the encoder hands over slices of its fused QKV projection
 without copies; their output is a ``[B, H, S, Dh]`` view of a
-``[B, S, H, Dh]`` tensor, the order the next projection reads. Kernel d
-keeps K and V of the whole sequence in shared memory, which bounds its S by
-what a block may use; the kernel library reports that bound for the card
-(``full_max_seq``: on an H100, 227 KB a block, 1552 at Dh=32 and 832 at
-Dh=64); longer sequences go to e. The TPU dispatch
+``[B, S, H, Dh]`` tensor, the order the next projection reads.
+
+The mask holds 0 and 1 only (the encoder's masks are such). Kernel d (and
+kernel f of ``ops/packed_attention.py``) skips the keys past a row's last
+valid one, which is exact for such masks: beside a valid key a key of bias
+-1e30 adds exactly 0. Both stream K and V, so shared memory does not bound
+S; ``full_max_seq`` is the route's threshold: ``fused_encoder_attention``
+sends S up to ``FULL_MAX_SEQ[Dh]`` to d and longer sequences to e, and d
+refuses longer ones. The TPU dispatch
 (XLA for S <= 128, d up to 1024, S a multiple of 128) was measured on a TPU
 and is not carried over. The attention backward is not ported: a CUDA
 input with ``requires_grad`` raises. ``launch_counts`` counts kernel
@@ -36,7 +41,6 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import functools
 import math
 
 import numpy as np
@@ -47,10 +51,9 @@ from . import _build
 NEG_INF = -1e30          # the additive mask value of the JAX package
 FLASH_BLOCK_K = 64       # keys per streamed tile of kernel e
 HEAD_DIMS = (32, 64)     # head sizes the CUDA kernels are built for
-# kernel d's bound on S on an H100 (``cs_attention_full_max_seq`` there):
-# CPU tensors take the plain twin of the kernel that card would launch, and
-# head sizes without a kernel the Dh=64 bound
-H100_FULL_MAX_SEQ = {32: 1552, 64: 832}
+# the d/e route: S up to this goes to kernel d, longer sequences to e (head
+# sizes without a kernel take the Dh=64 value)
+FULL_MAX_SEQ = {32: 1552, 64: 832}
 
 launch_counts = {"attention_full": 0, "attention_flash": 0}
 launches_by_seq: collections.Counter = collections.Counter()   # (kernel, S) -> launches
@@ -62,26 +65,10 @@ def reset_launch_counts() -> None:
     launches_by_seq.clear()
 
 
-def full_max_seq(dh: int, device=None) -> int:
-    """Kernel d's bound on S at head size ``dh``: on a CUDA ``device`` the
-    kernel library's, the longest sequence whose K and V fit the shared
-    memory a block of that card may use; otherwise ``H100_FULL_MAX_SEQ``."""
-    device = torch.device("cpu" if device is None else device)
-    if device.type != "cuda":
-        return H100_FULL_MAX_SEQ.get(dh, H100_FULL_MAX_SEQ[64])
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head size {dh}: the CUDA attention kernels take {HEAD_DIMS}")
-    index = torch.cuda.current_device() if device.index is None else device.index
-    return _card_full_max_seq(dh, index)
-
-
-@functools.lru_cache(maxsize=None)
-def _card_full_max_seq(dh: int, index: int) -> int:
-    with torch.cuda.device(index):
-        bound = _build.load().cs_attention_full_max_seq(dh)
-    if bound < 16:
-        raise RuntimeError(f"cs_attention_full_max_seq({dh}) failed on cuda:{index} ({bound})")
-    return bound
+def full_max_seq(dh: int) -> int:
+    """The longest S that ``fused_encoder_attention`` sends to kernel d at
+    head size ``dh`` (and that d takes on CUDA)."""
+    return FULL_MAX_SEQ.get(dh, FULL_MAX_SEQ[64])
 
 
 def _sm_scale(dh: int) -> float:
@@ -204,13 +191,13 @@ def _launch(entry: str, q, k, v, mask, *ints):
 
 
 def attention_full(q, k, v, mask):
-    """Kernel d -> [B, H, S, Dh]. On CUDA, S at most ``full_max_seq(Dh)``."""
+    """Kernel d -> [B, H, S, Dh]. On CUDA, S at most ``full_max_seq(Dh)``
+    and a mask of 0 and 1 only."""
     if _on_cpu(q, k, v, mask):
         return attention_full_plain(q, k, v, mask)
     _, _, s, dh = _check_cuda_inputs(q, k, v, mask)
-    if s > full_max_seq(dh, q.device):
-        raise ValueError(f"S={s} exceeds kernel d's bound {full_max_seq(dh, q.device)} "
-                         f"at Dh={dh}")
+    if s > full_max_seq(dh):
+        raise ValueError(f"S={s} exceeds kernel d's bound {full_max_seq(dh)} at Dh={dh}")
     o = _launch("cs_attention_full", q, k, v, mask)
     launch_counts["attention_full"] += 1
     launches_by_seq["attention_full", q.shape[2]] += 1
@@ -229,16 +216,16 @@ def attention_flash(q, k, v, mask):
 
 
 def fused_encoder_attention(q, k, v, mask, window: int = 0, bias2d=None):
-    """The encoder's attention: kernel d while the sequence fits its shared
-    memory, kernel e beyond, for every S (CPU tensors take their plain
-    twins). Windowed and biased attention have no kernel yet: on the CPU they
-    take ``reference_attention``, on CUDA they raise."""
+    """The encoder's attention: kernel d up to ``full_max_seq(Dh)``, kernel
+    e beyond (CPU tensors take their plain twins). Windowed and biased
+    attention have no kernel yet: on the CPU they take
+    ``reference_attention``, on CUDA they raise."""
     if window or bias2d is not None:
         if not _on_cpu(q, k, v, mask, bias2d):
             raise NotImplementedError(
                 "windowed (ModernBERT) and biased (ALiBi) attention have no CUDA "
                 "kernel yet (ROADMAP.md Queue 1)")
         return reference_attention(q, k, v, mask, window=window, bias2d=bias2d)
-    if q.shape[2] <= full_max_seq(q.shape[3], q.device):
+    if q.shape[2] <= full_max_seq(q.shape[3]):
         return attention_full(q, k, v, mask)
     return attention_flash(q, k, v, mask)

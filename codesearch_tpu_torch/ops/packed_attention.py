@@ -19,6 +19,10 @@ per-head attention with these roundings.
   ``PACKED_MAX_SEQ``, ``requires_grad``). On CUDA the output is a
   ``[B, H, S, D]`` view of a ``[B, S, H, D]`` tensor, as kernel d's is.
   ``launch_counts`` counts kernel launches only.
+
+The mask holds 0 and 1 only. The kernel shares kernel d's two-sweep body
+and, like d, skips the keys past a row's last valid one, which is exact for
+such masks (``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -60,7 +64,8 @@ def attention_packed_plain(q, k, v, mask, pack: int = 4):
 
 
 def attention_packed(q, k, v, mask, pack: int = 4):
-    """Kernel f -> [B, H, S, D] bf16, ``pack`` heads a CTA."""
+    """Kernel f -> [B, H, S, D] bf16, ``pack`` heads a CTA; on CUDA a mask
+    of 0 and 1 only."""
     if _on_cpu(q, k, v, mask):
         return attention_packed_plain(q, k, v, mask, pack)
     _, h, s, dh = _check_cuda_inputs(q, k, v, mask)

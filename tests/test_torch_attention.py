@@ -20,6 +20,7 @@ import torch
 from codesearch_tpu.ops import attention as ja
 from codesearch_tpu_torch.ops import _build
 from codesearch_tpu_torch.ops import attention as ta
+from codesearch_tpu_torch.ops import packed_attention as tp
 
 B, H, DH = 2, 4, 32
 F32_TOL = {"atol": 2e-5, "rtol": 2e-3}
@@ -130,22 +131,85 @@ def test_cpu_dispatch_takes_the_twin_of_the_kernel_cuda_would_launch(monkeypatch
     ta.reset_launch_counts()
     q, k, v, mask = (torch.from_numpy(a) for a in _inputs(32, seed=6))
     ta.fused_encoder_attention(q, k, v, mask)
-    monkeypatch.setattr(ta, "full_max_seq", lambda dh, device=None: 16)
+    monkeypatch.setattr(ta, "full_max_seq", lambda dh: 16)
     ta.fused_encoder_attention(q, k, v, mask)
     assert calls == ["attention_full_plain", "attention_flash_plain"]
     assert ta.launch_counts == {"attention_full": 0, "attention_flash": 0}
 
 
-def test_kernel_d_sequence_bound():
-    # an H100 block may opt into 227 KB (232,448 bytes); kernel d stages K as
-    # [S][Dh+8] and V^T as [Dh][S+8] in bf16 and the mask bias as [S] in f32
-    def smem(s, dh):
-        return s * (dh + 8) * 2 + dh * (s + 8) * 2 + s * 4
+def test_kernel_d_sequence_bound(monkeypatch):
+    # the d/e route's threshold: S up to full_max_seq(Dh) goes to kernel d,
+    # longer sequences to e
+    assert ta.FULL_MAX_SEQ == {32: 1552, 64: 832}
+    for dh, bound in ta.FULL_MAX_SEQ.items():
+        assert ta.full_max_seq(dh) == bound
+    assert ta.full_max_seq(48) == ta.FULL_MAX_SEQ[64]
+    routed = []
+    for name in ("attention_full_plain", "attention_flash_plain"):
+        monkeypatch.setattr(ta, name, lambda q, *a, _n=name: routed.append((_n, q.shape[2])))
+    for dh, bound in ta.FULL_MAX_SEQ.items():
+        for s in (bound, bound + 1):
+            q = torch.zeros(1, 1, s, dh)
+            ta.fused_encoder_attention(q, q, q, torch.ones(1, s))
+    assert routed == [("attention_full_plain", 1552), ("attention_flash_plain", 1553),
+                      ("attention_full_plain", 832), ("attention_flash_plain", 833)]
 
-    for dh, bound in ta.H100_FULL_MAX_SEQ.items():
-        assert ta.full_max_seq(dh) == ta.full_max_seq(dh, "cpu") == bound
-        assert smem(bound, dh) <= 232_448 < smem(bound + 16, dh)
-    assert ta.full_max_seq(48) == ta.H100_FULL_MAX_SEQ[64]
+
+def _keys_needed(mask_row: np.ndarray) -> int:
+    """Kernels d's and f's key count for one mask row: 1 + its last nonzero
+    key, or all S when it has none."""
+    nz = np.flatnonzero(mask_row)
+    return int(nz[-1]) + 1 if nz.size else mask_row.shape[0]
+
+
+def _skip_masks(s: int = 128) -> dict:
+    """[2, S] 0/1 masks for the skip rule: holes before the last valid key,
+    a trailing valid key, a fully masked row, and lengths 1 and S."""
+    rng = np.random.default_rng(17)
+    holes = (rng.random((2, s)) > 0.4).astype(np.float32)
+    holes[0, 71:] = 0.0
+    holes[0, 70] = 1.0
+    holes[1, 21:] = 0.0
+    holes[1, 20] = 1.0
+    trailing = holes.copy()
+    trailing[0, -1] = 1.0
+    trailing[1] = 0.0
+    trailing[1, -1] = 1.0
+    masked = np.zeros((2, s), np.float32)
+    masked[0, :40] = 1.0
+    ones = np.zeros((2, s), np.float32)
+    ones[0, 0] = ones[1, 0] = 1.0
+    full = holes.copy()
+    full[0] = 1.0
+    return {"holes": holes, "trailing_valid_key": trailing, "fully_masked_row": masked,
+            "length_1": ones, "length_s": full}
+
+
+@pytest.mark.parametrize("case", sorted(_skip_masks()))
+@pytest.mark.parametrize("twin", ["full", "packed"])
+def test_keys_past_the_last_valid_one_add_exactly_nothing(twin, case):
+    # kernels d and f run only over the keys below _keys_needed: the twins
+    # over those keys equal the twins over all S, in f32 (no bf16 cast)
+    mask = _skip_masks()[case]
+    q, k, v, _ = _inputs(mask.shape[1], seed=21)
+    fn = ta.attention_full_plain if twin == "full" else (
+        lambda *a: tp.attention_packed_plain(*a, pack=2))
+    q, k, v, m = (torch.from_numpy(a) for a in (q, k, v, mask))
+    whole = fn(q, k, v, m)
+    assert whole.dtype == torch.float32 and torch.isfinite(whole).all()
+    for b in range(mask.shape[0]):
+        n = _keys_needed(mask[b])
+        cut = fn(q[b:b + 1], k[b:b + 1, :, :n], v[b:b + 1, :, :n], m[b:b + 1, :n])
+        np.testing.assert_allclose(cut.numpy(), whole[b:b + 1].numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_full_twin_matches_jax_on_a_mask_with_holes(dtype):
+    q, k, v, _ = _inputs(128, seed=23)
+    q, k, v, mask = _as_dtype((q, k, v, _skip_masks()["holes"]), dtype)
+    got = _port(ta.attention_full_plain, q, k, v, mask, dtype)
+    ref = _jax(_PAIRS["full"][1], q, k, v, mask, dtype)
+    np.testing.assert_allclose(got, ref, **(F32_TOL if dtype == "f32" else BF16_TOL))
 
 
 @pytest.fixture
@@ -209,20 +273,22 @@ def cuda():
 
 @pytest.mark.cuda
 def test_kernel_d_bound_comes_from_the_card(cuda):
+    # the route on the card: d up to full_max_seq(Dh), e beyond
     for dh in ta.HEAD_DIMS:
-        bound = ta.full_max_seq(dh, cuda)
-        assert bound % 16 == 0 and bound >= 512
-        if "H100" in torch.cuda.get_device_name(cuda):
-            assert bound == ta.H100_FULL_MAX_SEQ[dh]
-    with pytest.raises(ValueError, match="head size 48"):
-        ta.full_max_seq(48, cuda)
+        for s, kernel in ((ta.full_max_seq(dh), "attention_full"),
+                          (ta.full_max_seq(dh) + 1, "attention_flash")):
+            q = torch.randn(1, 2, s, dh, device=cuda).to(torch.bfloat16)
+            before = dict(ta.launch_counts)
+            out = ta.fused_encoder_attention(q, q, q, torch.ones(1, s, device=cuda))
+            assert ta.launch_counts[kernel] == before[kernel] + 1
+            assert torch.isfinite(out).all()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["attention_full", "attention_flash"])
 @pytest.mark.parametrize("s,dh", [(16, 32), (100, 32), (512, 32), (512, 64), (1100, 32)])
 def test_kernels_match_plain_on_cuda(cuda, kernel, s, dh):
-    if kernel == "attention_full" and s > ta.full_max_seq(dh, cuda):
+    if kernel == "attention_full" and s > ta.full_max_seq(dh):
         pytest.skip("beyond kernel d's bound")
     q, k, v, mask = (t.to(cuda) for t in _bf16(s=s, dh=dh))
     before = ta.launch_counts[kernel]
