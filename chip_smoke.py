@@ -11,25 +11,33 @@ when any phase fails:
    compiler per source, in parallel);
 3. holds each kernel against its plain PyTorch version at the main path's
    shapes, with CUDA-event medians of both (plain-kernel-kernel-plain):
-   top-k kernels a, b, c at Q in {1, 9} query variants, N=262,144 rows,
-   d=384, k in {10, 200, 500}, and at Q=9 also k=1024 and the bound k=4096
-   (two merge levels), B in {1, 8} score rows for c, with exact ties and
-   invalid rows, and k above the bound raising; attention kernels d and e
-   in bf16 at bge-small's heads (H=12, Dh=32) with B=256 and S in {64, 256,
-   512} for d and e, Dh=64 at S=512, e at S in {1024, 2048}, ragged S,
-   the d/e route at its threshold, the encoder's layout (strided views of
-   one fused QKV projection) at S in {64, 512}, with padded masks, masks
-   with holes (zeros before a row's last valid key) and a fully masked row,
-   d timed on ragged and on full masks, and window, bias2d, requires_grad
-   and unsupported inputs raising;
+   top-k kernels a, b at Q in {1, 9} query variants, N=262,144 rows, d=384,
+   k in {10, 200, 500}, and at Q=9 also k=1024, 4096 (merge_topk in two
+   levels) and 8192 (the radix select over the partial lists), with exact
+   ties and invalid rows; kernel c (the radix select) at B in {1, 8} score
+   rows and k in {10, 256, 500, 1024, 4096, 8192, 20000}, bit for bit, on
+   rows a third exactly 0.0, with exact ties and dead slots; k above the
+   rows raising and launching nothing; c's and ``torch.topk``'s device time
+   (a replayed CUDA graph) beside the events, and a's two second passes
+   (merge_topk, the select) on the same partial lists at k=200; attention
+   kernels d and e in bf16 at bge-small's heads (H=12, Dh=32) with B=256 and
+   S in {64, 256, 512} for d and e, Dh=64 at S=512, e at S in {1024, 2048}
+   (ragged, full and holed masks), Dh=64 at S=1024 and B=2, S=16,384 (one row
+   full, one fully masked), ragged
+   S, the d/e route at its threshold, the encoder's layout (strided views of
+   one fused QKV projection) at S in {64, 512}, with padded masks, masks with
+   holes (zeros before a row's last valid key) and a fully masked row, d
+   timed on ragged and on full masks, and window, bias2d, requires_grad and
+   unsupported inputs raising;
 4. indexes the port's own ``codesearch_tpu_torch/`` sources with the port
    (code-hash-384) and searches that index through the port's CLI
    (``--json``);
 5. builds a 262,144-chunk synthetic index through the port's write plane
    (code-hash-384, bf16), answers hybrid, vector-only and identifier
    queries through a port ``SearchSession`` on the GPU, checks the answers
-   against the same session on the CPU (plain versions), counts kernel
-   launches, then repeats a short pass on the int8 corpus;
+   against the same session on the CPU (plain versions), one of them at
+   ``--limit 500``, counts kernel launches, then repeats a short pass on the
+   int8 corpus;
 6. phase 4 with bge-small (12-layer BERT, random init made from seed 0),
    logging the attention launches by sequence length;
 7. phase 5 with bge-small: the synthetic index, hybrid, vector-only and
@@ -51,9 +59,9 @@ when any phase fails:
 
 Beside each kernel's time (CUDA events around one call) it prints its
 bound on the card (the larger of the bytes it must move over 3.35 TB/s and
-its operations over the peak rate of their type), for the attention kernels
-and their library call also the device time a call from a replayed CUDA
-graph (events around one call also count the host's time to launch it),
+its operations over the peak rate of their type), for every kernel and the
+library calls of c-f also the device time a call from a replayed CUDA graph
+(events around one call also count the host's time to launch it),
 and, where one PyTorch call computes
 the same function, that call's time (``library_ms``:
 ``scaled_dot_product_attention`` for d, e, f; ``torch.topk`` over the
@@ -314,9 +322,10 @@ def kernel_checks(device: str) -> dict:
     cq, scale = cq.to(device), scale.to(device)
     results = {}
     # a multi-word query has one variant, an identifier up to nine; k=1024
-    # and the bound run the two-level merge (512 first-pass blocks)
+    # and merge_topk's largest k run the two-level merge (512 first-pass
+    # blocks), k=8192 the radix select over the partial lists
     cases = [(q, k) for q in (q9[:1].contiguous(), q9) for k in (10, 200, 500)]
-    cases += [(q9, 1024), (q9, ft.MAX_K)]
+    cases += [(q9, 1024), (q9, ft.MERGE_MAX_K), (q9, 8192)]
     for q, k in cases:
         nq = q.shape[0]
         got = ft.fused_cosine_topk(q, cb, vd, k)
@@ -352,7 +361,7 @@ def kernel_checks(device: str) -> dict:
         s[:, 1::5] = s[:, 0::5][:, : s[:, 1::5].shape[1]]  # exact ties
         kid = torch.arange(b, dtype=torch.int32) % 7 - 1  # -1: no boost
         sd, kd = s.to(device), kid.to(device)
-        for k in (10, 256, 500, 1024, ft.MAX_K):
+        for k in (10, 256, 500, 1024, 4096, 8192, 20000):
             got = ft.fused_scores_topk(sd, md, kd, k, DEAD_SLOT)
             torch.cuda.synchronize()
             ref = ft.fused_scores_topk_plain(sd, md, kd, k, DEAD_SLOT)
@@ -363,21 +372,22 @@ def kernel_checks(device: str) -> dict:
             results.setdefault("fused_scores_topk", {})[(b, k)] = float(
                 (got[0] - ref[0]).abs().max())
 
-    # above the bound a wrapper given CUDA tensors raises and launches nothing
+    # k above the selectable rows raises and launches nothing; no other k
+    # is refused (the loops above reach k=8192 and 20000)
     before = dict(ft.launch_counts)
     for name, call in (
-            ("fused_cosine_topk", lambda: ft.fused_cosine_topk(q9, cb, vd, ft.MAX_K + 1)),
+            ("fused_cosine_topk", lambda: ft.fused_cosine_topk(q9, cb, vd, N_ROWS + 1)),
             ("fused_cosine_topk_int8",
-             lambda: ft.fused_cosine_topk_int8(q9, cq, scale, vd, ft.MAX_K + 1)),
+             lambda: ft.fused_cosine_topk_int8(q9, cq, scale, vd, N_ROWS + 1)),
             ("fused_scores_topk",
-             lambda: ft.fused_scores_topk(sd, md, kd, ft.MAX_K + 1, DEAD_SLOT))):
+             lambda: ft.fused_scores_topk(sd, md, kd, N_ROWS + 1, DEAD_SLOT))):
         try:
             call()
         except ValueError as e:
-            log(f"{name} k={ft.MAX_K + 1} raises: {e}")
+            log(f"{name} k={N_ROWS + 1} > n raises: {e}")
         else:
-            raise SmokeFailure(f"{name} accepted k={ft.MAX_K + 1} above its bound")
-    check(ft.launch_counts == before, "a wrapper launched above the k bound")
+            raise SmokeFailure(f"{name} accepted k={N_ROWS + 1} above its {N_ROWS} rows")
+    check(ft.launch_counts == before, "a wrapper launched for k above its rows")
 
     # times at the main path's shapes: a hybrid query's fetch=200 vector
     # top-k over its variants (1 for a multi-word query, up to 9), and the
@@ -403,13 +413,16 @@ def kernel_checks(device: str) -> dict:
             t_kern_1 = cuda_ms(kern)
             t_kern_2 = cuda_ms(kern)
             t_plain_2 = cuda_ms(plain)
+            t_device = device_ms(kern)
             out.setdefault(name, {
                 "max_abs_err": max(results[name].values()),
                 "ms": min(t_kern_1, t_kern_2),
                 "plain_ms": min(t_plain_1, t_plain_2),
+                "device_ms": t_device,
             })
             log(f"time {name} {shape} N={N_ROWS}: kernel {t_kern_1}/{t_kern_2} ms, plain "
-                f"{t_plain_1}/{t_plain_2} ms (median of 20, plain-kernel-kernel-plain)")
+                f"{t_plain_1}/{t_plain_2} ms (median of 20, plain-kernel-kernel-plain); device "
+                f"ms a call (CUDA graph of 10 calls): kernel {t_device}")
     # bounds at the reported shapes: a and b at Q=1, k=200 (the corpus read
     # dominates), c at one score row, k=256, each counting only the rows this
     # run's data needs (valid corpus rows, live score slots) besides every
@@ -424,12 +437,33 @@ def kernel_checks(device: str) -> dict:
         library_ms=None)
     boosted = torch.where(md[None, :] == DEAD_SLOT, ft.NEG_INF,
                           s1 * torch.where(md[None, :] == k1[:, None], 3.0, 1.0))
+    topk_call = lambda: torch.topk(boosted, 256, dim=1)  # noqa: E731
     out["fused_scores_topk"].update(
         bound(n_live * 4 + N_ROWS * 4 + 4 + 256 * 8, n_live, "f32"),
-        library_ms=cuda_ms(lambda: torch.topk(boosted, 256, dim=1)))
+        library_ms=cuda_ms(topk_call), library_device_ms=device_ms(topk_call))
     for name, v in out.items():
-        log(f"bound {name}: {v['bound_ms']} ms ({v['bound_by']}); kernel {v['ms']} ms; "
-            f"library call {v['library_ms']} ms")
+        log(f"bound {name}: {v['bound_ms']} ms ({v['bound_by']}); kernel {v['ms']} ms "
+            f"(device {v['device_ms']}); library call {v['library_ms']} ms"
+            + (f" (device {v['library_device_ms']})" if "library_device_ms" in v else ""))
+
+    # c beyond the main path's k, and the select against merge_topk as a's
+    # and b's second pass over the same partial lists (k=200, Q=1 and 9)
+    for k in (4096, 20000):
+        kern = lambda k=k: ft.fused_scores_topk(s1, md, k1, k, DEAD_SLOT)  # noqa: E731
+        log(f"time fused_scores_topk B=1 k={k}: kernel {cuda_ms(kern)} ms, device {device_ms(kern)} "
+            f"ms; torch.topk {cuda_ms(lambda k=k: torch.topk(boosted, k, dim=1))} ms")
+    for q in (q9[:1].contiguous(), q9):
+        row = {}
+        for pass2 in ("merge", "select", "select", "merge"):
+            kern = lambda q=q, p2=pass2: ft.fused_cosine_topk(q, cb, vd, 200, pass2=p2)  # noqa: E731
+            row.setdefault(pass2, []).append((cuda_ms(kern), device_ms(kern)))
+        merged = ft.fused_cosine_topk(q, cb, vd, 200, pass2="merge")
+        selected = ft.fused_cosine_topk(q, cb, vd, 200, pass2="select")
+        check(torch.equal(merged[0], selected[0]) and torch.equal(merged[1], selected[1]),
+              f"a's two second passes disagree at Q={q.shape[0]} k=200")
+        log(f"time fused_cosine_topk Q={q.shape[0]} k=200, pass 2 merge_topk / radix select "
+            f"(merge-select-select-merge; events ms, device ms): merge {row['merge']}, select "
+            f"{row['select']}; results equal")
     return out
 
 
@@ -490,9 +524,11 @@ def attention_checks(device: str) -> dict:
                   f"fused_encoder_attention at S={s_route} Dh={dh} did not launch {name}")
     # (name, B, H, S, Dh, timed, fused_qkv, masks): bge-small's buckets at its
     # batch of 256, bge-base/large's head size at S=512, e at d's bge-small
-    # shapes, ragged S, each threshold, the encoder's layout (q, k, v views of
-    # one fused projection) at bge-small's shortest and longest bucket, then d
-    # on full masks (what skipping padding keys gains) and on masks with holes
+    # shapes and at S=2048 (ragged, full, holes), Dh=64 and one long S whose
+    # bias streams through 256 tiles, ragged S, each threshold, the encoder's
+    # layout (q, k, v views of one fused projection) at bge-small's shortest
+    # and longest bucket, then d on full masks (what skipping padding keys
+    # gains) and on masks with holes
     cases = [("attention_full", 256, 12, 64, 32, True, False, "ragged"),
              ("attention_full", 256, 12, 256, 32, True, False, "ragged"),
              ("attention_full", 256, 12, 512, 32, True, False, "ragged"),
@@ -507,7 +543,10 @@ def attention_checks(device: str) -> dict:
              ("attention_flash", 256, 12, 512, 32, True, False, "ragged"),
              ("attention_flash", 32, 12, 1024, 32, True, False, "ragged"),
              ("attention_flash", 8, 12, 2048, 32, True, False, "ragged"),
-             ("attention_flash", 16, 12, 1024, 64, False, False, "ragged"),
+             ("attention_flash", 8, 12, 2048, 32, True, False, "full"),
+             ("attention_flash", 16, 12, 1024, 64, True, False, "ragged"),
+             ("attention_flash", 2, 12, 16384, 32, True, False, "ragged"),
+             ("attention_flash", 8, 12, 2048, 32, False, False, "holes"),
              ("attention_flash", 4, 12, 1000, 32, False, False, "ragged"),
              ("attention_flash", 256, 12, 512, 32, False, True, "ragged"),
              ("attention_full", 256, 12, 512, 32, True, False, "full"),
@@ -542,13 +581,15 @@ def attention_checks(device: str) -> dict:
             t_kern_2 = cuda_ms(lambda: kern(q, k, v, mask), reps=10)
             t_plain_2 = cuda_ms(lambda: plain(q, k, v, mask), reps=10)
             row = {"ms": min(t_kern_1, t_kern_2), "plain_ms": min(t_plain_1, t_plain_2),
-                   **attention_bound(q, mask), "library_ms": sdpa_ms(q, k, v, mask)}
+                   **attention_bound(q, mask), "library_ms": sdpa_ms(q, k, v, mask),
+                   "device_ms": device_ms(lambda: kern(q, k, v, mask)),
+                   "library_device_ms": device_ms(sdpa_call(q, k, v, mask))}
             log(f"time {name} B={b} H={h} S={s} Dh={dh} ({masks} masks): kernel {t_kern_1}/"
                 f"{t_kern_2} ms, plain {t_plain_1}/{t_plain_2} ms (median of 10, plain-kernel-"
                 f"kernel-plain); scaled_dot_product_attention {row['library_ms']} ms; bound "
                 f"{row['bound_ms']} ms ({row['bound_by']}); device ms a call (CUDA graph of "
-                f"10 calls): kernel {device_ms(lambda: kern(q, k, v, mask))}, "
-                f"scaled_dot_product_attention {device_ms(sdpa_call(q, k, v, mask))}")
+                f"10 calls): kernel {row['device_ms']}, scaled_dot_product_attention "
+                f"{row['library_device_ms']}")
             # the JSON line reports d at bge-small's largest bucket, e at S=2048
             if (name, s, dh, masks) in (("attention_full", 512, 32, "ragged"),
                                         ("attention_flash", 2048, 32, "ragged")):
@@ -753,6 +794,7 @@ VECTOR_QUERIES = ["render widget metric", "merge the branch vector", "scan the s
                   "cache token matrix"]
 # "shared_registry" alone expands to six query variants
 IDENT_QUERIES = ["shared_registry sync", "where is shared_registry used", "shared_registry"]
+DEEP_LIMIT = 500        # a --limit the GPU session once refused (above 409 hybrid)
 
 
 def build_synthetic(db: Path, n_rows: int, device: str, model: str = "code-hash-384") -> dict:
@@ -945,6 +987,24 @@ def synthetic_session(work: Path, n_rows: int, device: str, cpu_check: bool) -> 
             log(f"GPU vs CPU session top-10 overlap per query: {overlap}; identical "
                 f"ranked lists {same}/{len(gpu_hits)}")
             check(same == len(gpu_hits), "GPU and CPU sessions rank different hits")
+            # a deep candidate list: --limit 500 (fetch 1500 a leg; the
+            # identifier's dense BM25 leg selects with kernel c), held to the
+            # CPU session hit for hit
+            deep = SearchOptions(limit=DEEP_LIMIT)
+            session._resp_cache.clear()
+            ft.reset_launch_counts()
+            t = time.perf_counter()
+            gpu_deep = [h.chunk_id for h in session.search(IDENT_QUERIES[0], deep).hits]
+            deep_ms = (time.perf_counter() - t) * 1000
+            deep_counts = dict(ft.launch_counts)
+            cpu_deep = [h.chunk_id for h in cpu.search(IDENT_QUERIES[0], deep).hits]
+            log(f"hybrid --limit {DEEP_LIMIT} {IDENT_QUERIES[0]!r} on the GPU: {len(gpu_deep)} hits "
+                f"in {deep_ms:.2f} ms, launches {deep_counts}; the same ranked list as the CPU "
+                f"session: {gpu_deep == cpu_deep}")
+            check(len(gpu_deep) == DEEP_LIMIT and gpu_deep == cpu_deep,
+                  f"the GPU and CPU sessions rank different hits at --limit {DEEP_LIMIT}")
+            check(deep_counts["fused_scores_topk"] >= 1 and deep_counts["fused_cosine_topk"] >= 1,
+                  f"the --limit {DEEP_LIMIT} query did not launch kernels a and c")
             del cpu
         del session
         torch.cuda.empty_cache()

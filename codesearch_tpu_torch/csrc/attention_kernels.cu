@@ -79,13 +79,37 @@
 //   (16 warps). f at P = 2 takes W = 4: 80 registers (8 bytes spilled), 3
 //   CTAs (24 warps) an SM.
 //
-// e (flash): K and V stream through shared memory in tiles of 64 keys with
-//   a running max and sum in f32 (_flash_kernel's online softmax). Its PV
-//   product keeps p near f32: p = hi + lo with hi and lo bf16, two products;
-//   the scores are (q . k) * scale, exact bf16 products summed in f32, where
-//   _flash_kernel scales q first. K sits in shared memory as [key][Dh] and V
-//   transposed as [Dh][key], so both B-fragments are single 32-bit loads.
-//   Keys past S take p = 0 and do not enter the max.
+// e (flash): one sweep over the keys with _flash_kernel's online softmax
+//   (attention_flash<DH, W>): a CTA owns one (batch row, head) and W * 16
+//   query rows, each warp 16 of them as mma A-fragments. It takes the pieces
+//   of d's body: K and V stream through the same double-buffered ring of
+//   64-key cp.async tiles (copy_tile, zero-filled at and past n_keys), the
+//   B-fragments of QK^T come from ldmatrix and those of PV from
+//   ldmatrix.trans on [key][Dh + 8] rows, and scores live in the log2 domain
+//   (one FMA with the bias, one subtraction of the running max, one
+//   ex2.approx a score). What differs from d:
+//   - One sweep: per 64-key tile the running max of each row (the four
+//     threads of a row merge it every tile, since all four scale their part
+//     of p @ V by it), alpha = 2^(old - new max), the running sum (kept per
+//     thread, merged once at the end) and p @ V with p near f32: p = hi + lo,
+//     both bf16, two products (_flash_kernel multiplies p and V in f32).
+//   - The bias cannot sit whole in shared memory (e takes any S), so it
+//     streams with its tile through the ring: one thread a key loads the
+//     next tile's mask while the current tile is computed and writes its
+//     bias, times log2(e) and -inf past S, after it. n_keys = 1 + the row's
+//     last valid key comes from one scan of the mask row backwards from its
+//     end, in steps of 4 keys a thread, stopping at the first step that
+//     holds a valid key (all S for a fully masked row). Tiles past n_keys are
+//     skipped: exact for an online softmax too, since beside a valid key a
+//     key of bias -1e30 gives p = 0 and alpha = 1.
+//   - The running max starts at _flash_kernel's m0 = -1e30 taken to the log2
+//     domain exactly as a masked key's bias is (-1e30 * log2(e), one
+//     rounding), so a fully masked row sees x - max = 0 for every key, p = 1
+//     and alpha = 1, and averages all S values of V, as the reference does.
+//   W was chosen on an H100 with examples/attention_variants.py (PERF.md
+//   section 6): W = 4, 110 registers and 4 CTAs (16 warps) an SM at Dh=32,
+//   142 and 3 CTAs at Dh=64. W = 8 is within 3% at Dh=32, where it spills,
+//   and 6% slower at Dh=64, where one CTA fits an SM.
 //
 // Every kernel launches on the caller's stream and allocates nothing; every
 // entry point returns the CUDA error of its launch (0 on success, -1 for a
@@ -103,16 +127,13 @@ typedef __nv_bfloat16 bf16;
 
 constexpr float kMaskNeg = -1.0e30f;  // _NEG_INF of attention.py
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerCta = kWarps * 16;
 constexpr int kPad = 8;        // bf16 of padding per shared-memory row
-constexpr int kFlashKeys = 64; // keys per streamed tile of e
-constexpr int kKeys = 64;      // keys per streamed tile of d and f
-// warps (16 query rows each) per head: d, f at P = 2, f at P = 4
+constexpr int kKeys = 64;      // keys per streamed tile of d, e and f
+// warps (16 query rows each) per head: d, f at P = 2, f at P = 4, e
 constexpr int kFullWarps = 4;
 constexpr int kPackedWarpsP2 = 4;
 constexpr int kPackedWarpsP4 = 8;
+constexpr int kFlashWarps = 4;
 constexpr int kPackedDh = 32;
 constexpr int kErrBadArg = -1;
 
@@ -175,41 +196,6 @@ __device__ __forceinline__ void load_q(const bf16* qg, long long qs, int row0, i
   }
 }
 
-// Raw scores q . k of the warp's 16 rows against 8 keys [n0, n0 + 8) of the
-// shared K block (row stride DH + kPad).
-template <int DH>
-__device__ __forceinline__ void score_tile(const uint32_t (&qa)[DH / 16][4], const bf16* ks,
-                                           int n0, int g, int t, float (&c)[4]) {
-  c[0] = c[1] = c[2] = c[3] = 0.0f;
-  const bf16* kr = ks + (n0 + g) * (DH + kPad) + 2 * t;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    mma_16816(c, qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-}
-
-// Stages rows [r0, r0 + n) of this head's K and V into shared memory: K as
-// [n][DH + kPad], V transposed as [DH][vstride], rows past S as zeros. Thread
-// order puts 32 consecutive keys in a warp, so the transposed stores of one
-// value index fall in 16 consecutive words (no bank conflicts).
-template <int DH>
-__device__ __forceinline__ void stage_kv(const bf16* kg, long long ks_, const bf16* vg,
-                                         long long vs_, int r0, int n, int S, bf16* ks,
-                                         bf16* vt, int vstride) {
-  constexpr int kVec = 8;  // bf16 per 16-byte load
-  for (int i = threadIdx.x; i < n * (DH / kVec); i += blockDim.x) {
-    const int r = i % n, c = (i / n) * kVec;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-    if (r0 + r < S) {
-      kv = *reinterpret_cast<const uint4*>(kg + (r0 + r) * ks_ + c);
-      vv = *reinterpret_cast<const uint4*>(vg + (r0 + r) * vs_ + c);
-    }
-    *reinterpret_cast<uint4*>(ks + r * (DH + kPad) + c) = kv;
-    const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) vt[(c + j) * vstride + r] = ve[j];
-  }
-}
-
 __device__ __forceinline__ float mask_bias(float m) {
   return __fmul_rn(__fsub_rn(1.0f, m), kMaskNeg);
 }
@@ -229,101 +215,6 @@ __device__ __forceinline__ void store_o(bf16* og, long long os, int row0, int S,
       *reinterpret_cast<uint32_t*>(og + rb * os + c) =
           pack_bf16(__fdiv_rn(acc[nt][2], db), __fdiv_rn(acc[nt][3], db));
   }
-}
-
-// ---- e: K/V tiles of 64 keys, online softmax in f32 -----------------------
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-attention_flash(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const float* __restrict__ mask,
-                bf16* __restrict__ o, Layout L, int H, int S, int n_qblocks, float scale) {
-  __shared__ __align__(16) bf16 ks[kFlashKeys * (DH + kPad)];
-  __shared__ __align__(16) bf16 vt[DH * (kFlashKeys + kPad)];
-  __shared__ float bias[kFlashKeys];
-  const int qb = blockIdx.x % n_qblocks, bh = blockIdx.x / n_qblocks;
-  const int b = bh / H, h = bh % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = qb * kRowsPerCta + warp * 16;
-  const bool active = row0 < S;  // warp-uniform; idle warps still join the barriers
-  uint32_t qa[DH / 16][4];
-  load_q<DH>(q + b * L.qb + h * L.qh, L.qs, row0, S, g, t, qa);
-  const bf16* kg = k + b * L.kb + h * L.kh;
-  const bf16* vg = v + b * L.vb + h * L.vh;
-
-  float acc[DH / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
-  float ma = kMaskNeg, mb = kMaskNeg, la = 0.0f, lb = 0.0f;  // _flash_kernel's m0, l0
-  for (int k0 = 0; k0 < S; k0 += kFlashKeys) {
-    __syncthreads();  // the previous tile is consumed
-    stage_kv<DH>(kg, L.ks, vg, L.vs, k0, kFlashKeys, S, ks, vt, kFlashKeys + kPad);
-    for (int j = threadIdx.x; j < kFlashKeys; j += blockDim.x)
-      bias[j] = k0 + j < S ? mask_bias(mask[(size_t)b * S + k0 + j]) : 0.0f;
-    __syncthreads();
-    if (!active) continue;
-    float s[kFlashKeys / 8][4];
-    float ca = -INFINITY, cb = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kFlashKeys / 8; ++j) {
-      score_tile<DH>(qa, ks, 8 * j, g, t, s[j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = 8 * j + 2 * t + (i & 1);
-        const float x = __fadd_rn(__fmul_rn(s[j][i], scale), bias[key]);
-        s[j][i] = x;
-        if (k0 + key < S) {
-          if (i < 2) ca = fmaxf(ca, x); else cb = fmaxf(cb, x);
-        }
-      }
-    }
-    const float na = fmaxf(ma, row_max4(ca)), nb = fmaxf(mb, row_max4(cb));
-    const float alpha_a = expf(ma - na), alpha_b = expf(mb - nb);
-    ma = na;
-    mb = nb;
-    float ra = 0.0f, rb = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kFlashKeys / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = 8 * j + 2 * t + (i & 1);
-        const float e = k0 + key < S ? expf(s[j][i] - (i < 2 ? na : nb)) : 0.0f;
-        s[j][i] = e;
-        if (i < 2) ra += e; else rb += e;
-      }
-    la = la * alpha_a + row_sum4(ra);
-    lb = lb * alpha_b + row_sum4(rb);
-#pragma unroll
-    for (int nt = 0; nt < DH / 8; ++nt) {
-      acc[nt][0] *= alpha_a;
-      acc[nt][1] *= alpha_a;
-      acc[nt][2] *= alpha_b;
-      acc[nt][3] *= alpha_b;
-    }
-#pragma unroll
-    for (int kc = 0; kc < kFlashKeys / 16; ++kc) {
-      uint32_t hi[4], lo[4];
-      const float pv[4][2] = {{s[2 * kc][0], s[2 * kc][1]}, {s[2 * kc][2], s[2 * kc][3]},
-                              {s[2 * kc + 1][0], s[2 * kc + 1][1]},
-                              {s[2 * kc + 1][2], s[2 * kc + 1][3]}};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const __nv_bfloat162 h2 = __floats2bfloat162_rn(pv[r][0], pv[r][1]);
-        hi[r] = *reinterpret_cast<const uint32_t*>(&h2);
-        lo[r] = pack_bf16(pv[r][0] - __low2float(h2), pv[r][1] - __high2float(h2));
-      }
-#pragma unroll
-      for (int nt = 0; nt < DH / 8; ++nt) {
-        const bf16* vr = vt + (nt * 8 + g) * (kFlashKeys + kPad) + 16 * kc + 2 * t;
-        const uint32_t b0 = ld32(vr), b1 = ld32(vr + 8);
-        mma_16816(acc[nt], hi, b0, b1);
-        mma_16816(acc[nt], lo, b0, b1);
-      }
-    }
-  }
-  if (!active) return;
-  store_o<DH>(o + b * L.ob + h * L.oh, L.os, row0, S, g, t, acc, fmaxf(la, 1e-30f),
-              fmaxf(lb, 1e-30f));
 }
 
 // ---- d and f: one streamed two-sweep body ---------------------------------
@@ -584,13 +475,165 @@ attention_two_sweep(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_o<DH>(o + b * L.ob + (h0 + p) * L.oh, L.os, row0, S, g, t, acc, da, db);
 }
 
+// ---- e: one streamed sweep, online softmax ----------------------------------
+// The bias of key j in the log2 domain: the mask's (1 - m) * -1e30 times
+// log2(e), -inf past S.
+__device__ __forceinline__ float key_bias(const float* mrow, int j, int S) {
+  return j < S ? __fmul_rn(mask_bias(mrow[j]), kLog2e) : -INFINITY;
+}
+
+template <int DH, int W>
+__global__ void __launch_bounds__(W * 32)
+attention_flash(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const float* __restrict__ mask,
+                bf16* __restrict__ o, Layout L, int H, int S, int n_qblocks, float scale_log2) {
+  constexpr int NT = W * 32;
+  constexpr int kTile = kKeys * (DH + kPad);  // bf16 of one K (or V) buffer
+  static_assert(NT >= kKeys, "one thread a key stages the bias");
+  __shared__ __align__(16) bf16 kbuf[2 * kTile];  // [2][kKeys][DH + kPad]
+  __shared__ __align__(16) bf16 vbuf[2 * kTile];
+  __shared__ __align__(16) float bias[2 * kKeys];
+  __shared__ int last_of_warp[2][W];
+  const int qb = blockIdx.x % n_qblocks, bh = blockIdx.x / n_qblocks;
+  const int b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = qb * (W * 16) + warp * 16;
+  const bool active = row0 < S;  // warp-uniform; idle warps still copy and join barriers
+  const bf16* kg = k + b * L.kb + h * L.kh;
+  const bf16* vg = v + b * L.vb + h * L.vh;
+  const float* mrow = mask + (size_t)b * S;
+
+  uint32_t qa[DH / 16][4];
+  load_q<DH>(q + b * L.qb + h * L.qh, L.qs, row0, S, g, t, qa);
+
+  // the keys that count: up to the row's last valid one, all S if it has
+  // none; the scan walks back from the row's end and stops at the first
+  // step of 4 * NT keys that holds a valid one
+  int last = -1;
+  for (int end = S, step = 0; end > 0; end -= 4 * NT, ++step) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = end - 4 * NT + j * NT + (int)threadIdx.x;
+      if (i >= 0 && mrow[i] != 0.0f) last = max(last, i);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
+    if (lane == 0) last_of_warp[step & 1][warp] = last;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < W; ++w) last = max(last, last_of_warp[step & 1][w]);
+    if (last >= 0) break;  // uniform: every thread holds the block's maximum
+  }
+  const int n_keys = last < 0 ? S : last + 1;
+  const int n_tiles = (n_keys + kKeys - 1) / kKeys;
+
+  // tile i lives in buffer i & 1; every iteration commits a copy group, empty
+  // or not, so waiting for all but the newest makes the current tile arrive
+  copy_tile<DH, 1, NT>(kg, vg, L, 0, n_keys, kbuf, vbuf, true);
+  cp_async_commit();
+  if (threadIdx.x < kKeys) bias[threadIdx.x] = key_bias(mrow, threadIdx.x, S);
+
+  // _flash_kernel's m0 = -1e30 in the log2 domain, rounded as a masked
+  // key's bias is, and l0 = 0; the sums are per thread until the end
+  const float m0 = __fmul_rn(kMaskNeg, kLog2e);
+  float ma = m0, mb = m0, la = 0.0f, lb = 0.0f;
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1;
+    const bool more = tile + 1 < n_tiles;
+    float next_bias = 0.0f;
+    if (more) {
+      copy_tile<DH, 1, NT>(kg, vg, L, (tile + 1) * kKeys, n_keys, kbuf + (buf ^ 1) * kTile,
+                           vbuf + (buf ^ 1) * kTile, true);
+      if (threadIdx.x < kKeys) next_bias = key_bias(mrow, (tile + 1) * kKeys + threadIdx.x, S);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (active) {
+      const bf16* ks = kbuf + buf * kTile;
+      const bf16* vs = vbuf + buf * kTile;
+      const float* bs = bias + buf * kKeys;
+      float x[kKeys / 8][4];
+      float na = ma, nb = mb;
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        score_tile_ldm<DH>(qa, ks, 8 * j, lane, x[j]);
+        const float2 bj = *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t);
+        x[j][0] = fmaf(x[j][0], scale_log2, bj.x);
+        x[j][1] = fmaf(x[j][1], scale_log2, bj.y);
+        x[j][2] = fmaf(x[j][2], scale_log2, bj.x);
+        x[j][3] = fmaf(x[j][3], scale_log2, bj.y);
+        na = fmaxf(na, fmaxf(x[j][0], x[j][1]));
+        nb = fmaxf(nb, fmaxf(x[j][2], x[j][3]));
+      }
+      na = row_max4(na);
+      nb = row_max4(nb);
+      const float alpha_a = ex2(ma - na), alpha_b = ex2(mb - nb);
+      ma = na;
+      mb = nb;
+      la *= alpha_a;
+      lb *= alpha_b;
+#pragma unroll
+      for (int nt = 0; nt < DH / 8; ++nt) {
+        acc[nt][0] *= alpha_a;
+        acc[nt][1] *= alpha_a;
+        acc[nt][2] *= alpha_b;
+        acc[nt][3] *= alpha_b;
+      }
+#pragma unroll
+      for (int kc = 0; kc < kKeys / 16; ++kc) {
+        // p of keys [16 kc, 16 kc + 16) as an A-fragment, split p = hi + lo
+        float pv[4][2];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float* xs = x[2 * kc + half];
+          pv[2 * half][0] = ex2(xs[0] - na);
+          pv[2 * half][1] = ex2(xs[1] - na);
+          pv[2 * half + 1][0] = ex2(xs[2] - nb);
+          pv[2 * half + 1][1] = ex2(xs[3] - nb);
+          la += pv[2 * half][0] + pv[2 * half][1];
+          lb += pv[2 * half + 1][0] + pv[2 * half + 1][1];
+        }
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const __nv_bfloat162 h2 = __floats2bfloat162_rn(pv[r][0], pv[r][1]);
+          hi[r] = *reinterpret_cast<const uint32_t*>(&h2);
+          lo[r] = pack_bf16(pv[r][0] - __low2float(h2), pv[r][1] - __high2float(h2));
+        }
+#pragma unroll
+        for (int np = 0; np < DH / 16; ++np) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vs + (16 * kc + (lane & 15)) * (DH + kPad) + np * 16 +
+                                    (lane >> 4) * 8);
+          mma_16816(acc[2 * np], hi, vb[0], vb[1]);
+          mma_16816(acc[2 * np], lo, vb[0], vb[1]);
+          mma_16816(acc[2 * np + 1], hi, vb[2], vb[3]);
+          mma_16816(acc[2 * np + 1], lo, vb[2], vb[3]);
+        }
+      }
+    }
+    // the next tile's bias into the buffer the previous tile has left
+    if (more && threadIdx.x < kKeys) bias[(buf ^ 1) * kKeys + threadIdx.x] = next_bias;
+    __syncthreads();  // this buffer is consumed before the next copy into it
+  }
+  if (!active) return;
+  store_o<DH>(o + b * L.ob + h * L.oh, L.os, row0, S, g, t, acc,
+              fmaxf(row_sum4(la), 1e-30f), fmaxf(row_sum4(lb), 1e-30f));
+}
+
 bool bad_args(const void* q, const void* k, const void* v, const void* o,
               const long long* st, int B, int H, int S, int dh) {
   if (B < 1 || H < 1 || S < 1 || (dh != 32 && dh != 64)) return true;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15) return true;
   for (int i = 0; i < 12; ++i)
     if (st[i] < 0 || st[i] % 8 != 0) return true;
-  return (long long)B * H * ((S + kRowsPerCta - 1) / kRowsPerCta) > 0x7fffffffLL;
+  return (long long)B * H * ((S + 31) / 32) > 0x7fffffffLL;  // CTAs at 32 rows
 }
 
 Layout layout_of(const long long* st) {
@@ -618,10 +661,11 @@ int launch_two_sweep(const void* q, const void* k, const void* v, const void* ma
 template <int DH>
 int launch_flash(const void* q, const void* k, const void* v, const void* mask, void* o,
                  const Layout& L, int B, int H, int S, float scale, cudaStream_t s) {
-  const int nqb = (S + kRowsPerCta - 1) / kRowsPerCta;
-  attention_flash<DH><<<B * H * nqb, kThreads, 0, s>>>(
+  constexpr int kRows = kFlashWarps * 16;
+  const int nqb = (S + kRows - 1) / kRows;
+  attention_flash<DH, kFlashWarps><<<B * H * nqb, kFlashWarps * 32, 0, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (bf16*)o, L, H, S, nqb,
-      scale);
+      scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -631,7 +675,7 @@ extern "C" {
 
 // q, k, v, o: bf16 [B, H, S, dh] views with element strides st[0..11] =
 // (b, h, s) of q, k, v, o; mask: f32 [B, S] contiguous, 1 = valid key, 0 =
-// padding (d and f skip the keys past a row's last nonzero one).
+// padding (d, e and f skip the keys past a row's last nonzero one).
 int cs_attention_full(const void* q, const void* k, const void* v, const void* mask, void* o,
                       const long long* st, int B, int H, int S, int dh, float scale,
                       void* stream) {

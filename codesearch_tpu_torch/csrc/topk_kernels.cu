@@ -1,45 +1,76 @@
 // Exact top-k selection kernels for Hopper (sm_90a), bound to Python via ctypes.
 //
 // Replaces the three Pallas kernels of codesearch_tpu/ops/pallas_topk.py:
-//   cs_cosine_topk_bf16  <- fused_cosine_topk       (_fused_kernel)
-//   cs_cosine_topk_int8  <- fused_cosine_topk_int8  (_fused_kernel_int8)
-//   cs_scores_topk       <- fused_scores_topk       (_fused_kernel_scores)
+//   cs_cosine_topk_bf16  <- fused_cosine_topk       (_fused_kernel)         kernel a
+//   cs_cosine_topk_int8  <- fused_cosine_topk_int8  (_fused_kernel_int8)    kernel b
+//   cs_scores_topk       <- fused_scores_topk       (_fused_kernel_scores)  kernel c
 //
 // What bounds them on an H100: the two cosine kernels read the whole corpus
 // matrix once per query group (N*d bytes: 201 MB for bf16 and 101 MB for
 // int8 at N=262,144, d=384), so they are bound by device-memory bandwidth
 // (3.35 TB/s), not by arithmetic: a [9,384]x[384,N] product is ~1.8 GFLOP.
-// The scores kernel reads B*N*4 bytes of precomputed scores. Selection adds
-// shared-memory sorting work that the design keeps per block and small.
+// The scores kernel reads B*N*4 bytes of precomputed scores (1 MB a row,
+// 0.3 us at the memory rate), so what it costs is its launches and the
+// latency of its passes, not bytes.
 //
-// Design. The TPU kernel kept ONE running top-k in VMEM because its grid runs
-// tiles in order on one core. Hopper blocks run in parallel and in no order,
-// so selection takes two passes:
-//   pass 1  every CTA owns a contiguous range of `rows` corpus rows. For a
-//           group of up to kQueryGroup queries it computes each score in the
-//           kernel body (the corpus rows are read ONCE for the whole group,
-//           each warp streaming whole rows with 16-byte loads), applies the
-//           validity mask or the kind boost, sorts the block's (score, row)
-//           keys in shared memory (bitonic) and writes its top-kp partial list.
-//   pass 2  one CTA per query streams all partial lists and keeps the exact
-//           top-k in shared memory: candidates at or below the running k-th
-//           key are dropped on sight, survivors are appended and the buffer is
-//           re-sorted only when it fills. Where a query has many partial
-//           lists, groups of them are merged first and their top-k merged
-//           once more (two levels).
-// k is bounded by kMaxK = 4096: the merge buffer holds 4,096 keys, or 8,192
-// (64 KB of shared memory) for k above 2048, and the search path's largest
-// selection, the BM25 dense leg's oversampled kpre, stays within it.
 // Exactness and tie order: a selection key packs the score into the high 32
-// bits (order-preserving bit transform) and the complemented row index into
-// the low 32 bits, so one unsigned 64-bit descending order is "score desc,
-// then index asc" -- the lowest index wins a tie, as XLA top_k and the Pallas
-// kernel do. Key 0 is below every real key and pads ragged blocks.
-// Invalid rows and dead slots score -3e38, as in the Pallas kernels.
+// bits (order-preserving bit transform) and the complemented column index
+// into the low 32 bits, so one unsigned 64-bit descending order is "score
+// desc, then index asc" -- the lowest index wins a tie, as XLA top_k and the
+// Pallas kernels do. Every key is unique. Key 0 is below every real key and
+// pads ragged blocks. Invalid rows and dead slots score -3e38, as in the
+// Pallas kernels.
 //
-// Every kernel launches on the caller's stream, allocates nothing (the
-// caller passes the partial-list scratch) and every entry point returns the
-// CUDA error of its launches (0 on success, negative for a bad argument).
+// The TPU kernels kept ONE running top-k in VMEM because their grid runs
+// tiles in order on one core. Hopper blocks run in parallel and in no order,
+// so selection is spread over CTAs in passes:
+//
+// a, b: pass 1. Every CTA owns a contiguous range of `rows` corpus rows. For
+//   a group of up to kQueryGroup queries it computes each score in the kernel
+//   body (the corpus rows are read ONCE for the whole group, each warp
+//   streaming whole rows with 16-byte loads), applies the validity mask, sorts
+//   the block's keys in shared memory (bitonic) and writes its top-kp partial
+//   list, kp = min(k, rows): for k >= rows every key of the block.
+//   Pass 2 for k <= kMergeMaxK: merge_topk, one CTA per query (or per group of
+//   lists, then once more) streams the partial lists and keeps the exact top-k
+//   in a shared-memory buffer of 4,096 or 8,192 keys. Pass 2 above
+//   kMergeMaxK: the radix select below, over the partial lists as key arrays.
+//
+// c, and a/b above kMergeMaxK: an exact radix select (select_*), which no
+//   shared-memory buffer bounds: any 1 <= k <= n. Its passes over a row of m
+//   keys (c: computed on the fly from scores, slot_meta and boost_kid; a/b:
+//   the partial lists) run as a fixed sequence of five launches, spread over
+//   ceil(m / 1024) CTAs a row, with every decision taken on the device:
+//   - select_hist<0..2>: each CTA builds a shared-memory histogram of one
+//     digit of its keys' score bits (bits 31-20, 19-8, 7-0 of the 32-bit
+//     order-preserving score), levels 1 and 2 only over keys whose higher
+//     digits match the prefix chosen so far, and adds it to the row's global
+//     histogram with atomics. Lanes of a warp with the same digit add once
+//     (__match_any_sync): a row where a third of the scores are exactly 0.0
+//     sends them all to one bin. The last CTA of the row to finish (a ticket
+//     counter after a fence) scans the global histogram, picks the bin that
+//     holds the k-th key and writes the new prefix and the count still needed
+//     in it. After level 2 the prefix is the k-th key's score T exactly, and
+//     `need` keys of score T are still to take; level 2's CTAs also keep their
+//     own 256-bin counts, from which that last CTA writes each CTA's count of
+//     score-T keys before it (ties are then taken in index order).
+//   - select_collect: every key above T is a winner, written at a slot of the
+//     row's output reserved with one atomic per CTA; a key equal to T is a
+//     winner if its rank among the score-T keys in index order (its CTA's
+//     offset plus a block scan) is below `need`, written after the others in
+//     that order. Heavy ties (10^5 equal zeros) cost one bin, no sorting.
+//   - select_sort (k <= kSortMax): one CTA bitonic-sorts the winners above T
+//     in shared memory (128 KB at 16,384 keys) and writes values and indices;
+//     the score-T winners are in order already. select_rank (larger k): each
+//     winner's rank is the number of winners above it (O(k^2) compares,
+//     spread over k / 128 CTAs of 1,024 threads), for the rare --limit in
+//     the thousands.
+//
+// Every kernel launches on the caller's stream and allocates nothing (the
+// caller passes the scratch, the select's histograms zeroed); every entry
+// point returns the CUDA error of its launches (0 on success, negative for a
+// bad argument). cs_init sets the kernels' shared-memory limits once, when
+// the library is loaded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,11 +81,27 @@ typedef unsigned long long u64;
 namespace {
 
 constexpr float kNegInf = -3.0e38f;
-constexpr int kMaxK = 4096;
+constexpr int kMergeMaxK = 4096;  // largest k merge_topk takes (a and b only)
 constexpr int kQueryGroup = 16;
 constexpr int kPass1Threads = 256;
 constexpr int kMergeThreads = 1024;
 constexpr int kMergeSlots = 4096;  // smallest merge buffer (keys)
+// radix select
+constexpr int kSelThreads = 256;
+constexpr int kSelItems = 4;                        // contiguous keys a thread
+constexpr int kSelChunk = kSelThreads * kSelItems;  // keys a CTA
+constexpr int kBinsHi = 4096;                       // levels 0 and 1: 12-bit digits
+constexpr int kBinsLo = 256;                        // level 2: 8-bit digit
+// zero-initialised ints a row: hist0, hist1, hist2, then 4 counters (the
+// per-level tickets of the last-CTA decision and the winners' fill count)
+constexpr int kZeroInts = 2 * kBinsHi + kBinsLo + 8;
+constexpr int kStateInts = 16;  // a row: {prefix, need, above, -} after each level
+constexpr int kSortMax = 16384;
+constexpr int kSortThreads = 1024;
+constexpr int kRankWinners = 128;  // winners a CTA of select_rank
+constexpr int kRankParts = 8;      // threads counting for each winner
+constexpr int kRankThreads = kRankWinners * kRankParts;
+constexpr int kRankTile = 2048;
 
 constexpr int kErrBadArg = -1;
 
@@ -297,32 +344,6 @@ cosine_partial_int8(const int8_t* __restrict__ q, const float* __restrict__ q_sc
   write_partials(keys, rows, qn, q0, kp, part);
 }
 
-// ---- pass 1: precomputed scores, kind boost and dead-slot mask ------------
-__global__ void __launch_bounds__(kPass1Threads)
-scores_partial(const float* __restrict__ scores, const int* __restrict__ slot_meta,
-               const int* __restrict__ boost_kid, int n, int rows, int kp,
-               int dead_slot, u64* __restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  u64* keys = reinterpret_cast<u64*>(smem);
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * rows;
-  const int kid = boost_kid[b];
-  const float* srow = scores + (size_t)b * n;
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    const int row = r0 + i;
-    u64 key = 0ull;
-    if (row < n) {
-      const int m = slot_meta[row];
-      const float s = __fmul_rn(srow[row], m == kid ? 3.0f : 1.0f);
-      key = make_key(m == dead_slot ? kNegInf : s, row);
-    }
-    keys[i] = key;
-  }
-  __syncthreads();
-  block_sort_desc(keys, rows);
-  write_partials(keys, rows, 1, b, kp, part);
-}
-
 // ---- pass 2: exact top-k of a group of sorted partial lists ---------------
 // CTA b merges lists [g * per_group, (g + 1) * per_group) of query q, where
 // q = b / groups and g = b % groups; each list holds kp keys. The result is
@@ -384,6 +405,336 @@ merge_topk(const u64* __restrict__ part, int n_lists, int kp, int per_group, int
   }
 }
 
+// ---- the radix select -------------------------------------------------------
+// Where its scratch lies. Row b's zeroed ints start at zero + b * kZeroInts:
+// hist0 [kBinsHi], hist1 [kBinsHi], hist2 [kBinsLo], then tickets[3] and
+// fill; state [nq][kStateInts] (slot L = 4 ints written after level L);
+// tie_off [nq][nblk]; cnt [nq][nblk][kBinsLo]; win [nq][k] keys.
+struct Select {
+  int* zero;
+  int* state;
+  int* tie_off;
+  int* cnt;
+  u64* win;
+  int nblk;
+  __device__ int* hist(int b, int level) const {
+    return zero + (size_t)b * kZeroInts + level * kBinsHi;
+  }
+  __device__ int* counters(int b) const { return zero + (size_t)b * kZeroInts + 2 * kBinsHi + kBinsLo; }
+  __device__ int* slot(int b, int level) const { return state + b * kStateInts + 4 * level; }
+};
+
+size_t select_ints(int nq, int m) {
+  const size_t nblk = (m + kSelChunk - 1) / kSelChunk;
+  return (size_t)nq * kStateInts + (size_t)nq * nblk * (1 + kBinsLo);
+}
+
+// u64 entries of the select's scratch that need no initialisation.
+size_t select_entries(int nq, int m, int k) {
+  return (size_t)nq * k + (select_ints(nq, m) + 1) / 2;
+}
+
+Select select_at(u64* scratch, int* zero, int nq, int m, int k) {
+  Select sel;
+  sel.zero = zero;
+  sel.win = scratch;
+  sel.state = reinterpret_cast<int*>(scratch + (size_t)nq * k);
+  sel.nblk = (m + kSelChunk - 1) / kSelChunk;
+  sel.tie_off = sel.state + (size_t)nq * kStateInts;
+  sel.cnt = sel.tie_off + (size_t)nq * sel.nblk;
+  return sel;
+}
+
+// Keys of c, computed on the fly: score x3 where the slot's kind is the
+// row's boost kind, -3e38 for a dead slot.
+struct ScoreKeys {
+  const float* scores;
+  const int* meta;
+  const int* kid;
+  int n;
+  int dead;
+  struct Row {
+    const float* s;
+    const int* meta;
+    int kid;
+    int dead;
+    __device__ __forceinline__ u64 operator()(int i) const {
+      const int m = meta[i];
+      const float v = __fmul_rn(s[i], m == kid ? 3.0f : 1.0f);
+      return make_key(m == dead ? kNegInf : v, i);
+    }
+  };
+  __device__ Row row(int b) const { return Row{scores + (size_t)b * n, meta, kid[b], dead}; }
+};
+
+// Keys of a and b above kMergeMaxK: the partial lists, m keys a query. A
+// list is sorted and lists follow their rows, so keys of one score come in
+// index order, as the select takes ties.
+struct ListKeys {
+  const u64* keys;
+  int m;
+  struct Row {
+    const u64* k;
+    __device__ __forceinline__ u64 operator()(int i) const { return k[i]; }
+  };
+  __device__ Row row(int b) const { return Row{keys + (size_t)b * m}; }
+};
+
+// Exclusive prefix sum of v over the block's threads in order, and the
+// total; every thread calls it (blockDim a multiple of 32, at most 1024).
+__device__ int block_excl_scan(int v, int* total) {
+  __shared__ int ws[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) ws[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nw ? ws[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    ws[lane] = w;
+  }
+  __syncthreads();
+  const int out = x - v + (warp > 0 ? ws[warp - 1] : 0);
+  *total = ws[nw - 1];
+  __syncthreads();  // ws is free for the next call
+  return out;
+}
+
+// The bin of a global histogram that holds the kk-th key from the top:
+// bin t with (keys in bins above t) < kk <= (keys in bins t and above).
+// Returns t and sets *above to the keys in the bins above it.
+template <int NB>
+__device__ int find_bin(const int* h, int kk, int* above) {
+  constexpr int kPer = NB / kSelThreads;
+  __shared__ int found_bin, found_above;
+  const int hi = NB - threadIdx.x * kPer;  // the thread's bins [hi - kPer, hi), top first
+  int c[kPer], sum = 0;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    c[j] = __ldcg(h + hi - 1 - j);
+    sum += c[j];
+  }
+  int total;
+  int s = block_excl_scan(sum, &total);
+  if (s < kk && kk <= s + sum) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (s + c[j] >= kk) {
+        found_bin = hi - 1 - j;
+        found_above = s;
+        break;
+      }
+      s += c[j];
+    }
+  }
+  __syncthreads();
+  *above = found_above;
+  return found_bin;
+}
+
+// Level LEVEL of the select: the histogram of one digit of the score bits
+// over the keys that match the prefix of the levels before, then the last
+// CTA of the row picks the digit of the k-th key.
+template <class Src, int LEVEL>
+__global__ void __launch_bounds__(kSelThreads)
+select_hist(Src src, int m, int k, Select sel) {
+  constexpr int NB = LEVEL == 2 ? kBinsLo : kBinsHi;
+  constexpr int kShift = LEVEL == 0 ? 20 : LEVEL == 1 ? 8 : 0;
+  constexpr int kBits = LEVEL == 2 ? 8 : 12;
+  __shared__ int h[NB];
+  __shared__ bool last;
+  const int b = blockIdx.y;
+  for (int i = threadIdx.x; i < NB; i += kSelThreads) h[i] = 0;
+  uint32_t prefix = 0u;  // the digits the levels before chose
+  if constexpr (LEVEL > 0) prefix = (uint32_t)sel.slot(b, LEVEL - 1)[0];
+  __syncthreads();
+  const auto row = src.row(b);
+  const int i0 = blockIdx.x * kSelChunk + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < kSelItems; ++j) {
+    const int i = i0 + j * kSelThreads;
+    int digit = -1;
+    if (i < m) {
+      const uint32_t o = (uint32_t)(row(i) >> 32);
+      if (LEVEL == 0 || (o >> (kShift + kBits)) == prefix) digit = (int)((o >> kShift) & (NB - 1));
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, digit);
+    if (digit >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
+      atomicAdd(&h[digit], __popc(peers));
+  }
+  __syncthreads();
+  int* gh = sel.hist(b, LEVEL);
+  for (int i = threadIdx.x; i < NB; i += kSelThreads) {
+    const int c = h[i];
+    if (c) atomicAdd(gh + i, c);
+    if (LEVEL == 2) sel.cnt[((size_t)b * sel.nblk + blockIdx.x) * kBinsLo + i] = c;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(sel.counters(b) + LEVEL, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // this CTA is the row's last: every other CTA's histogram is in gh
+  int kk = k;  // keys still to take within the prefix
+  if constexpr (LEVEL > 0) kk = sel.slot(b, LEVEL - 1)[1];
+  int above;
+  const int t = find_bin<NB>(gh, kk, &above);
+  const uint32_t next = (prefix << kBits) | (uint32_t)t;
+  const int need = kk - above;
+  if (threadIdx.x == 0) {
+    int* st = sel.slot(b, LEVEL);
+    st[0] = (int)next;
+    st[1] = need;
+    st[2] = k - need;  // after level 2: the keys above the k-th key's score
+  }
+  if (LEVEL == 2) {
+    // each CTA's count of keys of score T in the CTAs before it
+    int carry = 0;
+    for (int c0 = 0; c0 < sel.nblk; c0 += kSelThreads) {
+      const int c = c0 + threadIdx.x;
+      const int v = c < sel.nblk ? __ldcg(sel.cnt + ((size_t)b * sel.nblk + c) * kBinsLo + t) : 0;
+      int total;
+      const int before = block_excl_scan(v, &total);
+      if (c < sel.nblk) sel.tie_off[(size_t)b * sel.nblk + c] = carry + before;
+      carry += total;
+    }
+  }
+}
+
+// The winners: every key above T, and the first `need` keys of score T in
+// index order, after them.
+template <class Src>
+__global__ void __launch_bounds__(kSelThreads)
+select_collect(Src src, int m, int k, Select sel) {
+  __shared__ int base;
+  const int b = blockIdx.y;
+  const int* st = sel.slot(b, 2);
+  const uint32_t thr = (uint32_t)st[0];
+  const int need = st[1], above = st[2];
+  const auto row = src.row(b);
+  const int i0 = blockIdx.x * kSelChunk + threadIdx.x * kSelItems;
+  u64 key[kSelItems];
+  int n_win = 0, n_tie = 0;
+#pragma unroll
+  for (int j = 0; j < kSelItems; ++j) {
+    key[j] = i0 + j < m ? row(i0 + j) : 0ull;  // key 0: below every real key
+    const uint32_t o = (uint32_t)(key[j] >> 32);
+    n_win += o > thr;
+    n_tie += i0 + j < m && o == thr;
+  }
+  int win_total, tie_total;
+  int w = block_excl_scan(n_win, &win_total);
+  int r = block_excl_scan(n_tie, &tie_total) + sel.tie_off[(size_t)b * sel.nblk + blockIdx.x];
+  if (threadIdx.x == 0 && win_total > 0) base = atomicAdd(sel.counters(b) + 3, win_total);
+  __syncthreads();
+  u64* out = sel.win + (size_t)b * k;
+#pragma unroll
+  for (int j = 0; j < kSelItems; ++j) {
+    const uint32_t o = (uint32_t)(key[j] >> 32);
+    if (o > thr) {
+      out[base + w++] = key[j];
+    } else if (i0 + j < m && o == thr) {
+      if (r < need) out[above + r] = key[j];
+      ++r;
+    }
+  }
+}
+
+__device__ __forceinline__ void write_result(float* vals, int* idx, size_t o, u64 key) {
+  vals[o] = float_of((uint32_t)(key >> 32));
+  idx[o] = (int)(~(uint32_t)key);
+}
+
+// k <= kSortMax: one CTA a row sorts the winners above T in shared memory.
+__global__ void __launch_bounds__(kSortThreads)
+select_sort(Select sel, int k, float* __restrict__ vals, int* __restrict__ idx) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* keys = reinterpret_cast<u64*>(smem);
+  const int b = blockIdx.x;
+  const int above = sel.slot(b, 2)[2];
+  int len = 1;
+  while (len < above) len <<= 1;
+  const u64* w = sel.win + (size_t)b * k;
+  for (int i = threadIdx.x; i < len; i += blockDim.x) keys[i] = i < above ? w[i] : 0ull;
+  __syncthreads();
+  if (above > 1) block_sort_desc(keys, len);
+  for (int i = threadIdx.x; i < k; i += blockDim.x)
+    write_result(vals, idx, (size_t)b * k + i, i < above ? keys[i] : w[i]);
+}
+
+// Larger k: each winner above T goes to its rank, the number of winners
+// above it; the score-T winners stay where they are. A CTA ranks
+// kRankWinners winners, each counted by kRankParts threads over a share of
+// every tile (so ceil(k / 128) CTAs of 1,024 threads fill the card).
+__global__ void __launch_bounds__(kRankThreads)
+select_rank(Select sel, int k, float* __restrict__ vals, int* __restrict__ idx) {
+  __shared__ u64 tile[kRankTile];
+  __shared__ int part_rank[kRankParts][kRankWinners];
+  const int b = blockIdx.y;
+  const int above = sel.slot(b, 2)[2];
+  const int w0 = blockIdx.x * kRankWinners;
+  const int mine_at = w0 + threadIdx.x % kRankWinners, part = threadIdx.x / kRankWinners;
+  const u64* w = sel.win + (size_t)b * k;
+  const size_t o = (size_t)b * k;
+  if (w0 >= above) {  // uniform over the CTA: score-T winners only
+    if (part == 0 && mine_at < k) write_result(vals, idx, o + mine_at, w[mine_at]);
+    return;
+  }
+  const u64 mine = mine_at < above ? w[mine_at] : ~0ull;
+  int rank = 0;
+  for (int t0 = 0; t0 < above; t0 += kRankTile) {
+    const int nt = min(kRankTile, above - t0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nt; i += kRankThreads) tile[i] = w[t0 + i];
+    __syncthreads();
+    const int per = (nt + kRankParts - 1) / kRankParts;
+    const int i1 = min(nt, (part + 1) * per);
+#pragma unroll 8
+    for (int i = part * per; i < i1; ++i) rank += tile[i] > mine;
+  }
+  part_rank[part][threadIdx.x % kRankWinners] = rank;
+  __syncthreads();
+  if (part != 0 || mine_at >= k) return;
+  if (mine_at < above) {
+#pragma unroll
+    for (int j = 1; j < kRankParts; ++j) rank += part_rank[j][threadIdx.x];
+    write_result(vals, idx, o + rank, mine);
+  } else {
+    write_result(vals, idx, o + mine_at, w[mine_at]);
+  }
+}
+
+// The five launches of the select over nq rows of m keys.
+template <class Src>
+int select_topk(const Src& src, int nq, int m, int k, u64* scratch, int* zero, float* vals,
+                int* idx, cudaStream_t s) {
+  const Select sel = select_at(scratch, zero, nq, m, k);
+  const dim3 grid(sel.nblk, nq);
+  select_hist<Src, 0><<<grid, kSelThreads, 0, s>>>(src, m, k, sel);
+  select_hist<Src, 1><<<grid, kSelThreads, 0, s>>>(src, m, k, sel);
+  select_hist<Src, 2><<<grid, kSelThreads, 0, s>>>(src, m, k, sel);
+  select_collect<Src><<<grid, kSelThreads, 0, s>>>(src, m, k, sel);
+  if (k <= kSortMax) {
+    int len = 1;
+    while (len < k) len <<= 1;
+    select_sort<<<nq, kSortThreads, (size_t)len * sizeof(u64), s>>>(sel, k, vals, idx);
+  } else {
+    select_rank<<<dim3((k + kRankWinners - 1) / kRankWinners, nq), kRankThreads, 0, s>>>(
+        sel, k, vals, idx);
+  }
+  return (int)cudaGetLastError();
+}
+
 bool is_pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
 
 int next_pow2(int x) {
@@ -402,22 +753,24 @@ int lists_per_group(int n_lists, int kp) {
   return per < n_lists ? per : n_lists;
 }
 
-// Partial-list scratch (u64 entries) for nq queries over n columns.
-size_t scratch_entries(int nq, int n, int k, int rows) {
+// u64 entries of scratch that need no initialisation: for a and b (rows > 0)
+// the partial lists [nq][n_cta][kp], then merge_topk's second-level keys or
+// the select's scratch; for c (rows == 0) the select's scratch over n keys.
+size_t scratch_entries(int nq, int n, int k, int rows, bool select) {
+  if (rows == 0) return select_entries(nq, n, k);
   const int n_cta = (n + rows - 1) / rows;
   const int kp = k < rows ? k : rows;
+  const size_t lists = (size_t)nq * n_cta * kp;
+  if (select) return lists + select_entries(nq, n_cta * kp, k);
   const int per = lists_per_group(n_cta, kp);
   const int groups = (n_cta + per - 1) / per;
-  return (size_t)nq * n_cta * kp + (groups > 1 ? (size_t)nq * groups * k : 0);
+  return lists + (groups > 1 ? (size_t)nq * groups * k : 0);
 }
 
 template <int SLOTS>
 int merge_slots(u64* part, int nq, int n_cta, int kp, int k, int kpad, float* vals, int* idx,
                 cudaStream_t s) {
   const size_t smem = (size_t)SLOTS * sizeof(u64);
-  cudaError_t e = cudaFuncSetAttribute(merge_topk<SLOTS>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
   const int per = lists_per_group(n_cta, kp);
   const int groups = (n_cta + per - 1) / per;
   if (groups == 1) {
@@ -428,27 +781,32 @@ int merge_slots(u64* part, int nq, int n_cta, int kp, int k, int kpad, float* va
   u64* level = part + (size_t)nq * n_cta * kp;
   merge_topk<SLOTS><<<nq * groups, kMergeThreads, smem, s>>>(part, n_cta, kp, per, groups, k,
                                                              kpad, level, nullptr, nullptr);
-  e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   merge_topk<SLOTS><<<nq, kMergeThreads, smem, s>>>(level, groups, k, groups, 1, k, kpad,
                                                     nullptr, vals, idx);
   return (int)cudaGetLastError();
 }
 
-// Pass 2 over the partial lists in `part` ([nq, n_cta, kp] keys); the
-// second-level keys go after them. k up to 2048 merges in a 4,096-key
-// buffer (32 KB), larger k in an 8,192-key one (64 KB).
-int merge(u64* part, int nq, int n_cta, int kp, int k, float* vals, int* idx,
-          cudaStream_t s) {
+// Pass 2 of a and b over the partial lists in `part` ([nq, n_cta, kp]
+// keys): merge_topk (k up to 2048 in a 4,096-key buffer of 32 KB, larger k
+// in an 8,192-key one of 64 KB), or the radix select over the lists.
+int pass2(u64* part, int* zero, bool select, int nq, int n_cta, int kp, int k, float* vals,
+          int* idx, cudaStream_t s) {
+  if (select) {
+    const int m = n_cta * kp;
+    return select_topk(ListKeys{part, m}, nq, m, k, part + (size_t)nq * m, zero, vals, idx, s);
+  }
   const int kpad = next_pow2(k);
   if (kpad + 2 * kMergeThreads <= kMergeSlots)
     return merge_slots<kMergeSlots>(part, nq, n_cta, kp, k, kpad, vals, idx, s);
   return merge_slots<2 * kMergeSlots>(part, nq, n_cta, kp, k, kpad, vals, idx, s);
 }
 
-bool bad_common(int nq, int n, int k, int rows) {
-  return nq < 1 || n < 1 || k < 1 || k > kMaxK || k > n || !is_pow2(rows) ||
-         rows < 64 || rows > 4096;
+bool bad_cosine(int nq, int n, int k, int rows, int select, const void* zero) {
+  return nq < 1 || nq > 65535 || n < 1 || k < 1 || k > n || !is_pow2(rows) || rows < 64 ||
+         rows > 4096 || (!select && k > kMergeMaxK) || (select && zero == nullptr) ||
+         (long long)((n + rows - 1) / rows) * (k < rows ? k : rows) > 0x7fffffffLL;
 }
 
 // Queries scored per corpus pass: the smallest power of two >= nq, at most
@@ -457,51 +815,80 @@ int query_group(int nq) { return nq >= kQueryGroup ? kQueryGroup : next_pow2(nq)
 
 template <int QG>
 int launch_cosine_bf16(const void* q, const void* corpus, const void* valid, int nq, int n,
-                       int d, int k, int rows, void* part, void* vals, void* idx,
-                       void* stream) {
+                       int d, int k, int rows, int select, void* part, void* zero, void* vals,
+                       void* idx, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int n_cta = (n + rows - 1) / rows;
   const int kp = k < rows ? k : rows;
   const size_t smem = (size_t)QG * rows * sizeof(u64) + (size_t)QG * d * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(cosine_partial_bf16<QG>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
   dim3 grid(n_cta, (nq + QG - 1) / QG);
   cosine_partial_bf16<QG><<<grid, kPass1Threads, smem, s>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)corpus, (const uint8_t*)valid, nq, n,
       d, rows, kp, (u64*)part);
-  e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return merge((u64*)part, nq, n_cta, kp, k, (float*)vals, (int*)idx, s);
+  return pass2((u64*)part, (int*)zero, select, nq, n_cta, kp, k, (float*)vals, (int*)idx, s);
 }
 
 template <int QG>
 int launch_cosine_int8(const void* q, const void* q_scale, const void* corpus,
-                       const void* row_scale, const void* valid, int nq, int n, int d,
-                       int k, int rows, void* part, void* vals, void* idx, void* stream) {
+                       const void* row_scale, const void* valid, int nq, int n, int d, int k,
+                       int rows, int select, void* part, void* zero, void* vals, void* idx,
+                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int n_cta = (n + rows - 1) / rows;
   const int kp = k < rows ? k : rows;
   const size_t smem = (size_t)QG * rows * sizeof(u64) + (size_t)QG * d;
-  cudaError_t e = cudaFuncSetAttribute(cosine_partial_int8<QG>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
   dim3 grid(n_cta, (nq + QG - 1) / QG);
   cosine_partial_int8<QG><<<grid, kPass1Threads, smem, s>>>(
       (const int8_t*)q, (const float*)q_scale, (const int8_t*)corpus, (const float*)row_scale,
       (const uint8_t*)valid, nq, n, d, rows, kp, (u64*)part);
-  e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return merge((u64*)part, nq, n_cta, kp, k, (float*)vals, (int*)idx, s);
+  return pass2((u64*)part, (int*)zero, select, nq, n_cta, kp, k, (float*)vals, (int*)idx, s);
+}
+
+template <class K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int QG>
+cudaError_t allow_pass1(int bytes) {
+  cudaError_t e = allow_smem(cosine_partial_bf16<QG>, bytes);
+  return e != cudaSuccess ? e : allow_smem(cosine_partial_int8<QG>, bytes);
 }
 
 }  // namespace
 
 extern "C" {
 
-// u64 entries of partial-list scratch the top-k entry points need.
-long long cs_scratch_entries(int nq, int n, int k, int rows) {
-  return (long long)scratch_entries(nq, n, k, rows);
+// Sets the dynamic shared memory each top-k kernel may take on the current
+// device (above the default 48 KB only after this call); called once, when
+// the library is loaded.
+int cs_topk_init() {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = allow_pass1<1>(optin);
+  if (e == cudaSuccess) e = allow_pass1<2>(optin);
+  if (e == cudaSuccess) e = allow_pass1<4>(optin);
+  if (e == cudaSuccess) e = allow_pass1<8>(optin);
+  if (e == cudaSuccess) e = allow_pass1<16>(optin);
+  if (e == cudaSuccess) e = allow_smem(merge_topk<kMergeSlots>, kMergeSlots * (int)sizeof(u64));
+  if (e == cudaSuccess)
+    e = allow_smem(merge_topk<2 * kMergeSlots>, 2 * kMergeSlots * (int)sizeof(u64));
+  if (e == cudaSuccess) e = allow_smem(select_sort, kSortMax * (int)sizeof(u64));
+  return (int)e;
+}
+
+// u64 entries of scratch the top-k entry points need: zeroed == 0, the
+// scratch that needs no initialisation (rows: the cosine kernels' pass-1
+// rows, 0 for cs_scores_topk; select: whether pass 2 is the radix select);
+// zeroed == 1, the select's histograms and counters, which must be zero.
+long long cs_scratch_entries(int nq, int n, int k, int rows, int select, int zeroed) {
+  if (zeroed) return select ? ((long long)nq * kZeroInts + 1) / 2 : 0;
+  return (long long)scratch_entries(nq, n, k, rows, select != 0);
 }
 
 const char* cs_error_string(int err) {
@@ -509,51 +896,48 @@ const char* cs_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// `part` is scratch of cs_scratch_entries(nq, n, k, rows) u64 entries.
+// `part` and `zero`: the scratch of cs_scratch_entries(nq, n, k, rows,
+// select, 0 / 1), `zero` zeroed (unused when select is 0). select == 0 takes
+// merge_topk as pass 2 (k <= 4096), select == 1 the radix select.
 int cs_cosine_topk_bf16(const void* q, const void* corpus, const void* valid, int nq,
-                        int n, int d, int k, int rows, void* part, void* vals,
-                        void* idx, void* stream) {
-  if (bad_common(nq, n, k, rows) || d < 8 || d % 8 != 0 || d > 1024) return kErrBadArg;
+                        int n, int d, int k, int rows, int select, void* part, void* zero,
+                        void* vals, void* idx, void* stream) {
+  if (bad_cosine(nq, n, k, rows, select, zero) || d < 8 || d % 8 != 0 || d > 1024)
+    return kErrBadArg;
   switch (query_group(nq)) {
-    case 1: return launch_cosine_bf16<1>(q, corpus, valid, nq, n, d, k, rows, part, vals, idx, stream);
-    case 2: return launch_cosine_bf16<2>(q, corpus, valid, nq, n, d, k, rows, part, vals, idx, stream);
-    case 4: return launch_cosine_bf16<4>(q, corpus, valid, nq, n, d, k, rows, part, vals, idx, stream);
-    case 8: return launch_cosine_bf16<8>(q, corpus, valid, nq, n, d, k, rows, part, vals, idx, stream);
-    default: return launch_cosine_bf16<16>(q, corpus, valid, nq, n, d, k, rows, part, vals, idx, stream);
+    case 1: return launch_cosine_bf16<1>(q, corpus, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
+    case 2: return launch_cosine_bf16<2>(q, corpus, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
+    case 4: return launch_cosine_bf16<4>(q, corpus, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
+    case 8: return launch_cosine_bf16<8>(q, corpus, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
+    default: return launch_cosine_bf16<16>(q, corpus, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
   }
 }
 
 int cs_cosine_topk_int8(const void* q, const void* q_scale, const void* corpus,
                         const void* row_scale, const void* valid, int nq, int n, int d,
-                        int k, int rows, void* part, void* vals, void* idx, void* stream) {
-  if (bad_common(nq, n, k, rows) || d < 16 || d % 16 != 0 || d > 1024) return kErrBadArg;
+                        int k, int rows, int select, void* part, void* zero, void* vals,
+                        void* idx, void* stream) {
+  if (bad_cosine(nq, n, k, rows, select, zero) || d < 16 || d % 16 != 0 || d > 1024)
+    return kErrBadArg;
   switch (query_group(nq)) {
-    case 1: return launch_cosine_int8<1>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, part, vals, idx, stream);
-    case 2: return launch_cosine_int8<2>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, part, vals, idx, stream);
-    case 4: return launch_cosine_int8<4>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, part, vals, idx, stream);
-    case 8: return launch_cosine_int8<8>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, part, vals, idx, stream);
-    default: return launch_cosine_int8<16>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, part, vals, idx, stream);
+    case 1: return launch_cosine_int8<1>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
+    case 2: return launch_cosine_int8<2>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
+    case 4: return launch_cosine_int8<4>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
+    case 8: return launch_cosine_int8<8>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
+    default: return launch_cosine_int8<16>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
   }
 }
 
+// Kernel c: the radix select over nb rows of n scores; `part` and `zero` as
+// cs_scratch_entries(nb, n, k, 0, 1, 0 / 1) give them.
 int cs_scores_topk(const void* scores, const void* slot_meta, const void* boost_kid, int nb,
-                   int n, int k, int dead_slot, int rows, void* part, void* vals, void* idx,
+                   int n, int k, int dead_slot, void* part, void* zero, void* vals, void* idx,
                    void* stream) {
-  if (bad_common(nb, n, k, rows)) return kErrBadArg;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int n_cta = (n + rows - 1) / rows;
-  const int kp = k < rows ? k : rows;
-  const size_t smem = (size_t)rows * sizeof(u64);
-  cudaError_t e = cudaFuncSetAttribute(scores_partial,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(n_cta, nb);
-  scores_partial<<<grid, kPass1Threads, smem, s>>>(
-      (const float*)scores, (const int*)slot_meta, (const int*)boost_kid, n, rows, kp,
-      dead_slot, (u64*)part);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return merge((u64*)part, nb, n_cta, kp, k, (float*)vals, (int*)idx, s);
+  if (nb < 1 || nb > 65535 || n < 1 || k < 1 || k > n || zero == nullptr) return kErrBadArg;
+  const ScoreKeys src{(const float*)scores, (const int*)slot_meta, (const int*)boost_kid, n,
+                      dead_slot};
+  return select_topk(src, nb, n, k, (u64*)part, (int*)zero, (float*)vals, (int*)idx,
+                     (cudaStream_t)stream);
 }
 
 }  // extern "C"

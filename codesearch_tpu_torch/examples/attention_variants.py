@@ -1,15 +1,15 @@
-"""Kernels d and f at 2, 4 and 8 warps per head, on the card.
+"""Kernels d, e and f at 2, 4 and 8 warps per head, on the card.
 
-The two-sweep body of ``csrc/attention_kernels.cu`` gives each head W warps
-of 16 query rows (``kFullWarps`` for d, ``kPackedWarpsP2`` and
-``kPackedWarpsP4`` for f). This script builds the source once per W in
-{2, 4, 8} with ``-Xptxas -v`` and prints each two-sweep kernel's registers
-and spills and the CTAs per SM those registers, its threads and its shared
-memory at S=512 allow on an H100 (65,536 registers, 2,048 threads and 228 KB
-of shared memory an SM). Then it holds d and f (P=4, P=2) of each variant
-against their plain twins and times them, the variants in turns (W = 2, 4,
-8, 8, 4, 2), beside ``scaled_dot_product_attention`` on the same inputs
-(timed here only), at bge-small's heads (H=12, Dh=32):
+The attention kernels of ``csrc/attention_kernels.cu`` give each head W
+warps of 16 query rows (``kFullWarps`` for d, ``kPackedWarpsP2`` and
+``kPackedWarpsP4`` for f, ``kFlashWarps`` for e). This script builds the
+source once per W in {2, 4, 8} with ``-Xptxas -v`` and prints each kernel's
+registers and spills and the CTAs per SM those registers, its threads and its
+shared memory (S=512 for d and f) allow on an H100 (65,536 registers, 2,048
+threads and 228 KB of shared memory an SM). Then it holds d, e and f (P=4,
+P=2) of each variant against their plain twins and times them, the variants
+in turns (W = 2, 4, 8, 8, 4, 2), beside ``scaled_dot_product_attention`` on
+the same inputs (timed here only), at bge-small's heads (H=12, Dh=32):
 
 - B=256, S=512 with ragged masks (lengths uniform in [1, S], row 0 full,
   the last row fully masked, as ``chip_smoke.py`` makes them);
@@ -19,8 +19,10 @@ against their plain twins and times them, the variants in turns (W = 2, 4,
   B=8 (a query's variants), ragged, and at Dh=64 (bge-base/large's heads),
   B=128, S=512, ragged;
 
-and d against e at the route's threshold and below it (B=16, S=1552 and
-B=32, S=1024, ragged). It prints a markdown table and the card's name and
+d against e at the route's threshold and below it (B=16, S=1552 and
+B=32, S=1024, ragged), and e alone at B=8, S=2048 on ragged and full masks,
+at Dh=64 (B=16, S=1024, ragged) and at B=2, S=16,384 (one row full,
+one fully masked). It prints a markdown table and the card's name and
 power limit. With ``--source`` it compares the tree's source against other
 versions of ``attention_kernels.cu`` (a parent commit's, an experiment)
 instead of the warp counts, all in one call on one card.
@@ -53,7 +55,7 @@ TOL = 1e-2   # atol and rtol against the plain twin: one bf16 step, as chip_smok
 
 def with_warps(src: str, warps: int) -> str:
     """The attention source with every warp constant set to ``warps``."""
-    for name in ("kFullWarps", "kPackedWarpsP2", "kPackedWarpsP4"):
+    for name in ("kFullWarps", "kPackedWarpsP2", "kPackedWarpsP4", "kFlashWarps"):
         src, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {warps};", src)
         if n != 1:
             raise RuntimeError(f"{name} is not defined once in attention_kernels.cu")
@@ -73,16 +75,22 @@ def build_variant(i: int, src: str) -> subprocess.Popen:
 
 
 def resources(ptxas: str) -> list[dict]:
-    """Registers, spills and CTAs per SM of each two-sweep kernel."""
+    """Registers, spills and CTAs per SM of each two-sweep kernel (d, f) and
+    each flash kernel (e)."""
     rows, cur = [], None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             t = re.search(r"attention_two_sweepILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", m.group(1))
+            e = re.search(r"attention_flashILi(\d+)ELi(\d+)EE", m.group(1))
             cur = None
             if t:
                 dh, p, w, norm = (int(x) for x in t.groups())
                 cur = {"kernel": "f" if norm else "d", "dh": dh, "P": p, "W": w}
+            elif e:
+                dh, w = (int(x) for x in e.groups())
+                cur = {"kernel": "e", "dh": dh, "P": 1, "W": w}
+            if cur is not None:
                 rows.append(cur)
         elif cur is not None and "spill stores" in line:
             cur["spills"] = line.strip()
@@ -90,8 +98,10 @@ def resources(ptxas: str) -> list[dict]:
             cur["regs"] = int(re.search(r"Used (\d+) registers", line).group(1))
     for r in rows:
         threads = r["P"] * r["W"] * 32
-        # K and V rings, the bias of S=512 keys, 1 KB reserved a CTA
-        smem = 4 * r["P"] * 64 * (r["dh"] + 8) * 2 + 512 * 4 + 1024
+        # K and V rings, the bias (d, f: of S=512 keys; e: two tiles), 1 KB
+        # reserved a CTA
+        bias = 2 * 64 * 4 if r["kernel"] == "e" else 512 * 4
+        smem = 4 * r["P"] * 64 * (r["dh"] + 8) * 2 + bias + 1024
         per_cta = -(-r["regs"] // 8) * 8 * threads
         r["ctas_per_sm"] = min(SM_REGS // per_cta, SM_THREADS // threads, SM_SMEM // smem, 32)
         r["warps_per_sm"] = r["ctas_per_sm"] * threads // 32
@@ -155,7 +165,11 @@ def main(argv: list[str] | None = None) -> int:
              ("B=8 S=32 ragged", 8, 32, 32, False, ("d",)),
              ("B=128 S=512 Dh=64 ragged", 128, 512, 64, False, ("d",)),
              ("B=32 S=1024 ragged", 32, 1024, 32, False, ("d", "e")),
-             ("B=16 S=1552 ragged", 16, 1552, 32, False, ("d", "e"))]
+             ("B=16 S=1552 ragged", 16, 1552, 32, False, ("d", "e")),
+             ("B=8 S=2048 ragged", 8, 2048, 32, False, ("e",)),
+             ("B=8 S=2048 full", 8, 2048, 32, True, ("e",)),
+             ("B=16 S=1024 Dh=64 ragged", 16, 1024, 64, False, ("e",)),
+             ("B=2 S=16384 ragged", 2, 16384, 32, False, ("e",))]
     ok = True
     for i, (shape, b, s, dh, full, names) in enumerate(cases):
         q, k, v, mask = inputs(b, s, dh, seed=i, full=full)

@@ -34,10 +34,10 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 # argtypes of every entry point: pointers and the stream as c_void_p, ints
 # as c_int (ctypes would otherwise pass a pointer as a 32-bit int)
 _SIGNATURES = {
-    "cs_cosine_topk_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "cs_cosine_topk_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                            _P, _P],
-    "cs_scores_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "cs_cosine_topk_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "cs_cosine_topk_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                            _P, _P, _P],
+    "cs_scores_topk": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "cs_attention_full": [_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P],
     "cs_attention_flash": [_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P],
     "cs_attention_packed": [_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _F, _P],
@@ -120,7 +120,9 @@ def build(verbose: bool = False) -> Path:
 
 
 def bind(path: Path) -> ctypes.CDLL:
-    """Load a kernel library and declare its entry points' signatures."""
+    """Load a kernel library, declare its entry points' signatures and set
+    the top-k kernels' shared-memory limits on the current CUDA device (once
+    a library, not on every call)."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -128,8 +130,11 @@ def bind(path: Path) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.cs_error_string.argtypes = [ctypes.c_int]
     lib.cs_error_string.restype = ctypes.c_char_p
-    lib.cs_scratch_entries.argtypes = [_I, _I, _I, _I]
+    lib.cs_scratch_entries.argtypes = [_I, _I, _I, _I, _I, _I]
     lib.cs_scratch_entries.restype = ctypes.c_longlong
+    lib.cs_topk_init.argtypes = []
+    lib.cs_topk_init.restype = ctypes.c_int
+    check(lib, lib.cs_topk_init(), "cs_topk_init")
     return lib
 
 

@@ -118,14 +118,15 @@ def attention_flash_plain(q, k, v, mask):
     """``_flash_kernel``'s arithmetic: q in f32 times 1/sqrt(Dh), then per
     block of ``FLASH_BLOCK_K`` keys an online softmax (running max from
     -1e30, running sum) and an f32 ``p @ V``; the output divides by
-    max(sum, 1e-30). A shorter last block is taken as it is."""
+    max(sum, 1e-30). A shorter last block is taken as it is; the blocks
+    cover K's length, which may be shorter than Q's."""
     b, h, s, dh = q.shape
     qs = q.float() * _sm_scale(dh)
     bias = _mask_bias(mask)
     acc = torch.zeros(b, h, s, v.shape[-1], dtype=torch.float32, device=q.device)
     m = torch.full((b, h, s, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l_sum = torch.zeros(b, h, s, 1, dtype=torch.float32, device=q.device)
-    for a in range(0, s, FLASH_BLOCK_K):
+    for a in range(0, k.shape[2], FLASH_BLOCK_K):
         kb = k[:, :, a:a + FLASH_BLOCK_K].float()
         vb = v[:, :, a:a + FLASH_BLOCK_K].float()
         sc = torch.matmul(qs, kb.transpose(-1, -2)) + bias[..., a:a + FLASH_BLOCK_K]

@@ -12,9 +12,12 @@ Three wrappers, each beside its plain PyTorch version:
   dead slot.
 
 Ties keep the lowest index. A tensor on the CPU takes the plain version; a
-tensor on a CUDA device launches the hand-written kernel of
-``csrc/topk_kernels.cu`` (two passes: per-block sorted partial lists, then a
-per-query merge) or raises. ``launch_counts`` counts kernel launches only.
+tensor on a CUDA device launches the hand-written kernels of
+``csrc/topk_kernels.cu`` or raises, for any 1 <= k <= N. Kernel c is an
+exact radix select over the boosted scores (five launches); a and b sort
+per-block partial lists, then merge them (``merge_topk``, k up to
+``MERGE_MAX_K``) or run the radix select over them (larger k).
+``launch_counts`` counts wrapper calls that launched their kernels.
 """
 
 from __future__ import annotations
@@ -23,13 +26,12 @@ import torch
 
 from . import _build
 
-# Largest k the kernels select; a wrapper given a CUDA tensor raises above it.
-# It covers the search path's largest selection: the BM25 dense leg's kpre,
-# at most pow2(pow2(fetch) + DEAD_RESYNC_MAX) = 4096 for fetch <= 2048.
-MAX_K = 4096
+# Largest k that a and b merge with merge_topk (its shared-memory buffer);
+# above it they take the radix select over their partial lists.
+MERGE_MAX_K = 4096
 NEG_INF = -3.0e38       # score of an invalid row / dead slot (Pallas' sentinel)
 _ROWS_COSINE = 512      # corpus rows per CTA in the cosine kernels' first pass
-_ROWS_SCORES = 1024     # score columns per CTA in the scores kernel's first pass
+PASS2 = ("auto", "merge", "select")   # a's and b's second pass (see _select)
 
 launch_counts = {
     "fused_cosine_topk": 0,
@@ -113,25 +115,39 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> No
 
 
 def _check_k(k: int, n: int) -> None:
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside the kernels' range [1, {MAX_K}]")
-    if k > n:
-        raise ValueError(f"k={k} exceeds the {n} selectable columns")
+    if not 1 <= k <= n:
+        raise ValueError(f"k={k} outside [1, {n}], the selectable columns")
 
 
-def _outputs(lib, nq: int, n: int, k: int, rows: int, device):
-    part = torch.empty(lib.cs_scratch_entries(nq, n, k, rows), dtype=torch.int64, device=device)
+def _select(k: int, pass2: str) -> bool:
+    """Whether a's or b's second pass is the radix select: above
+    ``MERGE_MAX_K`` always, below it only if asked (``pass2="select"``, to
+    time the two on the same partial lists)."""
+    if pass2 not in PASS2:
+        raise ValueError(f"pass2={pass2!r}: expected one of {PASS2}")
+    if pass2 == "merge" and k > MERGE_MAX_K:
+        raise ValueError(f"merge_topk takes k <= {MERGE_MAX_K}, got {k}")
+    return pass2 == "select" or k > MERGE_MAX_K
+
+
+def _outputs(lib, nq: int, n: int, k: int, rows: int, select: bool, device):
+    """Scratch (the select's histograms zeroed) and the outputs."""
+    part = torch.empty(lib.cs_scratch_entries(nq, n, k, rows, int(select), 0),
+                       dtype=torch.int64, device=device)
+    zero = torch.zeros(lib.cs_scratch_entries(nq, n, k, rows, int(select), 1),
+                       dtype=torch.int64, device=device)
     vals = torch.empty((nq, k), dtype=torch.float32, device=device)
     idx = torch.empty((nq, k), dtype=torch.int32, device=device)
-    return part, vals, idx
+    return part, zero, vals, idx
 
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def fused_cosine_topk(queries, corpus, valid, k: int):
-    """Exact bf16 cosine top-k -> (scores [Q, k] f32, indices [Q, k] i32)."""
+def fused_cosine_topk(queries, corpus, valid, k: int, pass2: str = "auto"):
+    """Exact bf16 cosine top-k -> (scores [Q, k] f32, indices [Q, k] i32).
+    ``pass2`` picks the kernel's second pass on CUDA (see ``_select``)."""
     if _on_cpu(queries, corpus, valid):
         return fused_cosine_topk_plain(queries, corpus, valid, k)
     n, d = corpus.shape
@@ -141,20 +157,22 @@ def fused_cosine_topk(queries, corpus, valid, k: int):
     _require(corpus, "corpus", torch.bfloat16, (n, d))
     _require(valid, "valid", torch.bool, (n,))
     _check_k(k, n)
+    select = _select(k, pass2)
     with torch.cuda.device(corpus.device):
         lib = _build.load()
-        part, vals, idx = _outputs(lib, nq, n, k, _ROWS_COSINE, corpus.device)
+        part, zero, vals, idx = _outputs(lib, nq, n, k, _ROWS_COSINE, select, corpus.device)
         rc = lib.cs_cosine_topk_bf16(
             q.data_ptr(), corpus.data_ptr(), valid.data_ptr(), nq, n, d, k,
-            _ROWS_COSINE, part.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-            _stream())
+            _ROWS_COSINE, int(select), part.data_ptr(), zero.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), _stream())
         _build.check(lib, rc, "fused_cosine_topk")
     launch_counts["fused_cosine_topk"] += 1
     return vals, idx
 
 
-def fused_cosine_topk_int8(queries, corpus_q, row_scale, valid, k: int):
-    """Exact int8 cosine top-k -> (scores [Q, k] f32, indices [Q, k] i32)."""
+def fused_cosine_topk_int8(queries, corpus_q, row_scale, valid, k: int, pass2: str = "auto"):
+    """Exact int8 cosine top-k -> (scores [Q, k] f32, indices [Q, k] i32).
+    ``pass2`` as for ``fused_cosine_topk``."""
     if _on_cpu(queries, corpus_q, row_scale, valid):
         return fused_cosine_topk_int8_plain(queries, corpus_q, row_scale, valid, k)
     n, d = corpus_q.shape
@@ -166,13 +184,15 @@ def fused_cosine_topk_int8(queries, corpus_q, row_scale, valid, k: int):
     _require(row_scale, "row_scale", torch.float32, (n,))
     _require(valid, "valid", torch.bool, (n,))
     _check_k(k, n)
+    select = _select(k, pass2)
     with torch.cuda.device(corpus_q.device):
         lib = _build.load()
-        part, vals, idx = _outputs(lib, nq, n, k, _ROWS_COSINE, corpus_q.device)
+        part, zero, vals, idx = _outputs(lib, nq, n, k, _ROWS_COSINE, select, corpus_q.device)
         rc = lib.cs_cosine_topk_int8(
             q_i8.data_ptr(), q_scale.data_ptr(), corpus_q.data_ptr(),
             row_scale.data_ptr(), valid.data_ptr(), nq, n, d, k, _ROWS_COSINE,
-            part.data_ptr(), vals.data_ptr(), idx.data_ptr(), _stream())
+            int(select), part.data_ptr(), zero.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+            _stream())
         _build.check(lib, rc, "fused_cosine_topk_int8")
     launch_counts["fused_cosine_topk_int8"] += 1
     return vals, idx
@@ -190,10 +210,10 @@ def fused_scores_topk(scores, slot_meta, boost_kid, k: int, dead_slot: int):
     _check_k(k, n)
     with torch.cuda.device(scores.device):
         lib = _build.load()
-        part, vals, idx = _outputs(lib, nb, n, k, _ROWS_SCORES, scores.device)
+        part, zero, vals, idx = _outputs(lib, nb, n, k, 0, True, scores.device)
         rc = lib.cs_scores_topk(
             scores.data_ptr(), slot_meta.data_ptr(), boost_kid.data_ptr(), nb,
-            n, k, dead_slot, _ROWS_SCORES, part.data_ptr(), vals.data_ptr(),
+            n, k, dead_slot, part.data_ptr(), zero.data_ptr(), vals.data_ptr(),
             idx.data_ptr(), _stream())
         _build.check(lib, rc, "fused_scores_topk")
     launch_counts["fused_scores_topk"] += 1

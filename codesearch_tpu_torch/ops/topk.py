@@ -3,9 +3,9 @@
 
 A CPU tensor scores with the plain PyTorch version; a CUDA tensor goes to
 the hand-written kernels of ``fused_topk`` whatever the number of queries
-(the JAX package's ``q >= 8`` gate was a TPU measurement). On a CUDA
-tensor a k above ``fused_topk.MAX_K`` raises; it is not sent to the plain
-version, as the JAX dispatch sends it to XLA ``top_k``.
+(the JAX package's ``q >= 8`` gate was a TPU measurement) and whatever k,
+where the JAX dispatch sends k above 256 to XLA ``top_k``: no k goes to the
+plain version on the card.
 """
 
 from __future__ import annotations

@@ -24,11 +24,9 @@ import numpy as np
 
 from ..embed import EmbeddingService
 from ..fts import FtsStore
-from ..fts.store import DEAD_RESYNC_MAX
 from ..index.db_discovery import resolve_database_with_message
 from ..index.pipeline import read_metadata
 from ..models.hash_embedder import batch_features
-from ..ops.fused_topk import MAX_K
 from ..rerank.fusion import rrf_fusion_with_exact, vector_only
 from ..utils.constants import EMBEDDER_VERSION, FTS_DIR_NAME
 from ..utils.device import resolve_device, to_host
@@ -54,11 +52,6 @@ from .degrade import dispatch_with_degrade
 __all__ = ["SearchHit", "SearchOptions", "SearchResponse", "SearchSession", "search"]
 
 _NOT_PORTED = "not ported yet (ROADMAP.md Queue 1)"
-# Largest candidate depth a GPU query may ask for: its BM25 leg selects
-# kpre <= pow2(pow2(fetch) + DEAD_RESYNC_MAX) rows, which must stay within the
-# top-k kernels' MAX_K. The CPU path (plain versions) has no such bound.
-MAX_FETCH = MAX_K - DEAD_RESYNC_MAX
-
 EARLY_TERMINATION_SCORE = 0.85   # top-5 similarity (ref: distance < 0.15)
 LANGUAGE_BOOST = 1.2
 KIND_BOOST = 1.15
@@ -442,10 +435,6 @@ class SearchSession:
             fetch = max(options.limit * 5, 200)
         if phrases or exclusions:
             fetch = max(fetch, 500)
-        if self.device.type == "cuda" and fetch > MAX_FETCH:
-            raise SearchError(
-                f"limit {options.limit} needs {fetch} candidates per leg; the GPU "
-                f"top-k kernels allow at most {MAX_FETCH} (ROADMAP.md Queue 1)")
         fused = self.service.fused_kind()
         prefixed = [self.service.spec.query_prefix + v for v in variants]
         if fused == "hash":

@@ -156,7 +156,7 @@ def test_kernel_d_sequence_bound(monkeypatch):
 
 
 def _keys_needed(mask_row: np.ndarray) -> int:
-    """Kernels d's and f's key count for one mask row: 1 + its last nonzero
+    """Kernels d's, e's and f's key count for one mask row: 1 + its last nonzero
     key, or all S when it has none."""
     nz = np.flatnonzero(mask_row)
     return int(nz[-1]) + 1 if nz.size else mask_row.shape[0]
@@ -186,14 +186,15 @@ def _skip_masks(s: int = 128) -> dict:
 
 
 @pytest.mark.parametrize("case", sorted(_skip_masks()))
-@pytest.mark.parametrize("twin", ["full", "packed"])
+@pytest.mark.parametrize("twin", ["full", "packed", "flash"])
 def test_keys_past_the_last_valid_one_add_exactly_nothing(twin, case):
-    # kernels d and f run only over the keys below _keys_needed: the twins
-    # over those keys equal the twins over all S, in f32 (no bf16 cast)
+    # kernels d, e and f run only over the keys below _keys_needed: the twins
+    # over those keys equal the twins over all S, in f32 (no bf16 cast); for
+    # e's online softmax a masked key beside a valid one gives p = 0, alpha = 1
     mask = _skip_masks()[case]
     q, k, v, _ = _inputs(mask.shape[1], seed=21)
-    fn = ta.attention_full_plain if twin == "full" else (
-        lambda *a: tp.attention_packed_plain(*a, pack=2))
+    fn = {"full": ta.attention_full_plain, "flash": ta.attention_flash_plain,
+          "packed": lambda *a: tp.attention_packed_plain(*a, pack=2)}[twin]
     q, k, v, m = (torch.from_numpy(a) for a in (q, k, v, mask))
     whole = fn(q, k, v, m)
     assert whole.dtype == torch.float32 and torch.isfinite(whole).all()

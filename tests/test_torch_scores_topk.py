@@ -114,12 +114,13 @@ def test_kernel_matches_plain_on_cuda(cuda, b, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1024, fused_topk.MAX_K])
-def test_two_level_merge_matches_plain_on_cuda(cuda, k):
-    # 65,536 columns: 64 first-pass blocks, merged in two levels
+@pytest.mark.parametrize("k", [1024, 4096, 8192, 20000])
+def test_deep_k_matches_plain_on_cuda(cuda, k):
+    # 65,536 columns (64 CTAs a row of the radix select), deep k included
     rng = np.random.default_rng(12)
     n = 65536
     scores = rng.random((2, n)).astype(np.float32)
+    scores[:, ::3] = 0.0
     scores[:, 1::5] = scores[:, 0::5][:, : scores[:, 1::5].shape[1]]
     meta = rng.integers(0, 6, n).astype(np.int32)
     meta[rng.random(n) < 0.05] = DEAD
@@ -130,12 +131,18 @@ def test_two_level_merge_matches_plain_on_cuda(cuda, k):
 
 
 @pytest.mark.cuda
-def test_dense_leg_above_bound_raises_on_cuda(cuda):
+@pytest.mark.parametrize("k", [8192, 20000])
+def test_dense_leg_at_deep_k_on_cuda(cuda, k):
+    # the dense leg at deep k runs the kernel (no bound but the columns)
     scores, meta, kid = _inputs(13, 1)
-    scores = np.tile(scores, (1, 2))
-    meta = np.tile(meta, 2)
+    scores = np.tile(scores, (1, 8))
+    meta = np.tile(meta, 8)
     args = [torch.from_numpy(a).to(cuda) for a in (scores, meta, kid)]
     before = fused_topk.launch_counts["fused_scores_topk"]
-    with pytest.raises(ValueError, match="outside the kernels' range"):
-        bm25._dense_scores_topk(*args, fused_topk.MAX_K + 1)
-    assert fused_topk.launch_counts["fused_scores_topk"] == before
+    got = bm25._dense_scores_topk(*args, k)
+    assert fused_topk.launch_counts["fused_scores_topk"] == before + 1
+    ref = fused_topk.fused_scores_topk_plain(*args, k, DEAD)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    with pytest.raises(ValueError, match="selectable columns"):
+        fused_topk.fused_scores_topk(*args, scores.shape[1] + 1, DEAD)
+    assert fused_topk.launch_counts["fused_scores_topk"] == before + 1

@@ -200,22 +200,47 @@ def test_resolve_device_needs_cuda_unless_cpu_is_named(monkeypatch):
         resolve_device("mps")
 
 
-def test_gpu_session_bounds_fetch(tmp_repo, tmp_path):
-    # the GPU kernels select at most MAX_K rows; a GPU session refuses a
-    # limit whose candidate depth could exceed that, before any device work
-    from codesearch_tpu_torch.search.pipeline import MAX_FETCH
-    from codesearch_tpu_torch.utils.errors import SearchError
-
+def test_gpu_session_takes_deep_fetch(tmp_repo, tmp_path):
+    # no top-k kernel bounds k below the corpus, so a session flagged as CUDA
+    # plans deep candidate lists as the CPU session does: --limit 410 hybrid
+    # (fetch 2050) and --limit 683 vector (fetch 2049), once refused
     db = tmp_path / "db"
     index(tmp_repo, IndexOptions(store_path=db, quiet=True), device="cpu")
     session = SearchSession(db, device="cpu")
-    assert session._prep_query("parse the file", SearchOptions(limit=410))["fetch"] > MAX_FETCH
+    plans = [session._prep_query("parse the file", SearchOptions(limit=410)),
+             session._prep_query("parse the file", SearchOptions(limit=683, mode="vector"))]
     session.device = torch.device("cuda")
-    assert session._prep_query("parse the file", SearchOptions(limit=409))["fetch"] <= MAX_FETCH
-    with pytest.raises(SearchError, match="at most 2048"):
-        session._prep_query("parse the file", SearchOptions(limit=410))
-    with pytest.raises(SearchError):
-        session._prep_query("parse the file", SearchOptions(limit=683, mode="vector"))
+    for opts, cpu in zip((SearchOptions(limit=410), SearchOptions(limit=683, mode="vector")),
+                         plans):
+        st = session._prep_query("parse the file", opts)
+        assert st["fetch"] == cpu["fetch"] > 2048
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_gpu_session_deep_limit_matches_cpu(cuda, tmp_repo, tmp_path):
+    # --limit 500 hybrid (fetch 2500) on the card: the same ranked hits as
+    # the CPU session, through the kernels
+    _add_synthetic(tmp_repo, n_files=60)
+    db = tmp_path / "db"
+    index(tmp_repo, IndexOptions(store_path=db, quiet=True), device="cpu")
+    gpu, cpu = SearchSession(db, device="cuda"), SearchSession(db, device="cpu")
+    _force_device_routes(gpu)
+    _force_device_routes(cpu)
+    fused_topk.reset_launch_counts()
+    for query in ("validate the schema and return it", "shared_registry sync"):
+        opts = SearchOptions(limit=500)
+        got = [h.chunk_id for h in gpu.search(query, opts).hits]
+        assert got == [h.chunk_id for h in cpu.search(query, opts).hits], query
+        assert len(got) == 500
+    assert fused_topk.launch_counts["fused_cosine_topk"] > 0
+    assert fused_topk.launch_counts["fused_scores_topk"] > 0
 
 
 def test_port_refuses_bert_models(tmp_path):

@@ -151,16 +151,23 @@ def test_cpu_dispatch_runs_plain_without_launching():
     assert all(n == 0 for n in fused_topk.launch_counts.values())
 
 
-def test_wrapper_rejects_k_above_bound_on_cuda_only():
-    # a CPU tensor takes the plain version at any k; the kernel bound is
-    # enforced where the kernel would launch
+def test_wrapper_rejects_only_k_outside_the_columns():
+    # no bound but the columns: k = MERGE_MAX_K + 1 is taken (on the card by
+    # the radix select), k above the selectable columns or below 1 raises
     queries, c, valid = _inputs(8)
     c2, valid2 = np.concatenate([c, c]), np.concatenate([valid, valid])
+    k = fused_topk.MERGE_MAX_K + 1
     vals, _ = topk.cosine_topk(torch.from_numpy(queries), torch.from_numpy(c2).to(torch.bfloat16),
-                               torch.from_numpy(valid2), fused_topk.MAX_K + 1)
-    assert vals.shape == (Q, fused_topk.MAX_K + 1)
-    with pytest.raises(ValueError):
-        fused_topk._check_k(fused_topk.MAX_K + 1, 2 * N)
+                               torch.from_numpy(valid2), k)
+    assert vals.shape == (Q, k)
+    fused_topk._check_k(k, 2 * N)
+    fused_topk._check_k(2 * N, 2 * N)
+    for bad in (0, 2 * N + 1):
+        with pytest.raises(ValueError, match="selectable columns"):
+            fused_topk._check_k(bad, 2 * N)
+    assert fused_topk._select(k, "auto") and not fused_topk._select(k - 1, "auto")
+    with pytest.raises(ValueError, match="merge_topk"):
+        fused_topk._select(k, "merge")
 
 
 @pytest.fixture
@@ -200,8 +207,10 @@ def _large_inputs(cuda, n: int):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1024, fused_topk.MAX_K])
-def test_two_level_merge_matches_plain_on_cuda(cuda, k):
+@pytest.mark.parametrize("k", [1024, fused_topk.MERGE_MAX_K, 8192, 20000])
+def test_deep_k_matches_plain_on_cuda(cuda, k):
+    # up to MERGE_MAX_K the merge (two levels from k=512), above it the radix
+    # select over the partial lists
     q, c, cb, v = _large_inputs(cuda, 65536)
     got = fused_topk.fused_cosine_topk(q, cb, v, k)
     ref = fused_topk.fused_cosine_topk_plain(q, cb, v, k)
@@ -213,12 +222,26 @@ def test_two_level_merge_matches_plain_on_cuda(cuda, k):
 
 
 @pytest.mark.cuda
-def test_k_above_bound_raises_on_cuda(cuda):
+@pytest.mark.parametrize("k", [10, 200, 1024])
+def test_select_pass_matches_merge_on_cuda(cuda, k):
+    # the same partial lists through either second pass
+    q, c, cb, v = _large_inputs(cuda, 65536)
+    got = fused_topk.fused_cosine_topk(q, cb, v, k, pass2="select")
+    ref = fused_topk.fused_cosine_topk(q, cb, v, k, pass2="merge")
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_k_above_rows_raises_on_cuda(cuda):
+    # only k above the rows raises, before any launch
     q, c, cb, v = _large_inputs(cuda, 8192)
     cq, s = topk.quantize_rows_int8(torch.from_numpy(c))
     before = dict(fused_topk.launch_counts)
-    with pytest.raises(ValueError, match="outside the kernels' range"):
-        topk.cosine_topk(q, cb, v, fused_topk.MAX_K + 1)
-    with pytest.raises(ValueError, match="outside the kernels' range"):
-        topk.cosine_topk_int8(q, cq.to(cuda), s.to(cuda), v, fused_topk.MAX_K + 1)
+    with pytest.raises(ValueError, match="selectable columns"):
+        topk.cosine_topk(q, cb, v, 8193)
+    with pytest.raises(ValueError, match="selectable columns"):
+        topk.cosine_topk_int8(q, cq.to(cuda), s.to(cuda), v, 8193)
     assert fused_topk.launch_counts == before
+    vals, idx = topk.cosine_topk(q, cb, v, 8192)
+    assert vals.shape == (Q, 8192) and torch.equal(idx.sort(dim=1).values[0].cpu(),
+                                                   torch.arange(8192, dtype=torch.int32))
