@@ -11,15 +11,17 @@ when any phase fails:
    compiler per source, in parallel);
 3. holds each kernel against its plain PyTorch version at the main path's
    shapes, with CUDA-event medians of both (plain-kernel-kernel-plain):
-   top-k kernels a, b at Q in {1, 9} query variants, N=262,144 rows, d=384,
-   k in {10, 200, 500}, and at Q=9 also k=1024, 4096 (merge_topk in two
-   levels) and 8192 (the radix select over the partial lists), with exact
-   ties and invalid rows; kernel c (the radix select) at B in {1, 8} score
+   top-k kernels a, b (the tensor-core score pass, then the radix select)
+   at Q in {1, 9, 17} query variants (17: past one 16-query group),
+   N=262,144 rows, d=384, k in {10, 200, 500, 4096, 8192}, with exact ties
+   and invalid rows, b bit for bit; a's and b's times at Q in {1, 9}, k=200,
+   with each one's bound, the device time of each of their kernels (the
+   profiler) and the score pass's registers, spills and CTAs an SM (ptxas,
+   the occupancy API); kernel c (the radix select) at B in {1, 8} score
    rows and k in {10, 256, 500, 1024, 4096, 8192, 20000}, bit for bit, on
    rows a third exactly 0.0, with exact ties and dead slots; k above the
    rows raising and launching nothing; c's and ``torch.topk``'s device time
-   (a replayed CUDA graph) beside the events, and a's two second passes
-   (merge_topk, the select) on the same partial lists at k=200; attention
+   (a replayed CUDA graph) beside the events; attention
    kernels d and e in bf16 at bge-small's heads (H=12, Dh=32) with B=256 and
    S in {64, 256, 512} for d and e, Dh=64 at S=512, e at S in {1024, 2048}
    (ragged, full and holed masks), Dh=64 at S=1024 and B=2, S=16,384 (one row
@@ -309,23 +311,25 @@ def kernel_checks(device: str) -> dict:
     import torch
 
     from codesearch_tpu_torch.examples.ablate_head_packing import cuda_ms
+    from codesearch_tpu_torch.examples.topk_variants import kernel_split, score_pass_resources
+    from codesearch_tpu_torch.ops import _build
     from codesearch_tpu_torch.ops import fused_topk as ft
     from codesearch_tpu_torch.ops.bm25 import DEAD_SLOT
     from codesearch_tpu_torch.ops.topk import quantize_rows_int8
 
     gen = torch.Generator().manual_seed(0)
     c, valid = make_corpus(N_ROWS, DIMS, gen)
-    q9 = (c[:N_QUERIES] + 0.02 * torch.randn(N_QUERIES, DIMS, generator=gen)).to(device)
+    q17 = (c[:17] + 0.02 * torch.randn(17, DIMS, generator=gen)).to(device)
+    q9 = q17[:N_QUERIES]
     cb = c.to(torch.bfloat16).to(device)
     vd = valid.to(device)
     cq, scale = quantize_rows_int8(c)
     cq, scale = cq.to(device), scale.to(device)
     results = {}
-    # a multi-word query has one variant, an identifier up to nine; k=1024
-    # and merge_topk's largest k run the two-level merge (512 first-pass
-    # blocks), k=8192 the radix select over the partial lists
-    cases = [(q, k) for q in (q9[:1].contiguous(), q9) for k in (10, 200, 500)]
-    cases += [(q9, 1024), (q9, ft.MERGE_MAX_K), (q9, 8192)]
+    # a multi-word query has one variant, an identifier up to nine; 17 runs
+    # two 16-query groups of the score pass; every k goes through the radix
+    # select (sorting its winners up to 16,384)
+    cases = [(q, k) for q in (q17[:1], q9, q17) for k in (10, 200, 500, 4096, 8192)]
     for q, k in cases:
         nq = q.shape[0]
         got = ft.fused_cosine_topk(q, cb, vd, k)
@@ -351,6 +355,7 @@ def kernel_checks(device: str) -> dict:
         check(same, f"fused_cosine_topk_int8 disagrees at Q={nq} k={k}")
         results.setdefault("fused_cosine_topk_int8", {})[(nq, k)] = float(
             (got[0] - ref[0]).abs().max())
+        del plain_scores
 
     meta = torch.randint(0, 6, (N_ROWS,), generator=gen, dtype=torch.int32)
     meta[torch.rand(N_ROWS, generator=gen) < 0.05] = DEAD_SLOT
@@ -392,78 +397,75 @@ def kernel_checks(device: str) -> dict:
     # times at the main path's shapes: a hybrid query's fetch=200 vector
     # top-k over its variants (1 for a multi-word query, up to 9), and the
     # dense BM25 leg's kp=256 selection over one score row. The first shape
-    # of each kernel is the one reported in the JSON line.
+    # of each kernel is the one reported in the JSON line, Q=9 beside it.
+    # Bounds: each counting only the rows this run's data needs (valid
+    # corpus rows, live score slots) besides every row's flag; a and b read
+    # the f32 queries and write Q x k results (the corpus read dominates at
+    # both Q); no one PyTorch call computes a or b (a masked cosine matmul
+    # plus a top-k with the lowest index on ties)
     s1 = torch.rand(1, N_ROWS, generator=gen).to(device)
     k1 = torch.tensor([2], dtype=torch.int32, device=device)
+    n_valid, n_live = int(vd.sum()), int((md != DEAD_SLOT).sum())
     timed = {"fused_cosine_topk": [], "fused_cosine_topk_int8": [], "fused_scores_topk": []}
-    for q in (q9[:1].contiguous(), q9):
+    for q in (q17[:1], q9):
+        nq = q.shape[0]
+        io = N_ROWS + nq * DIMS * 4 + nq * 200 * 8
         timed["fused_cosine_topk"].append((
-            f"Q={q.shape[0]} k=200", lambda q=q: ft.fused_cosine_topk(q, cb, vd, 200),
-            lambda q=q: ft.fused_cosine_topk_plain(q, cb, vd, 200)))
+            nq, f"Q={nq} k=200", lambda q=q: ft.fused_cosine_topk(q, cb, vd, 200),
+            lambda q=q: ft.fused_cosine_topk_plain(q, cb, vd, 200),
+            bound(n_valid * DIMS * 2 + io, 2 * nq * n_valid * DIMS, "bf16")))
         timed["fused_cosine_topk_int8"].append((
-            f"Q={q.shape[0]} k=200", lambda q=q: ft.fused_cosine_topk_int8(q, cq, scale, vd, 200),
-            lambda q=q: ft.fused_cosine_topk_int8_plain(q, cq, scale, vd, 200)))
+            nq, f"Q={nq} k=200", lambda q=q: ft.fused_cosine_topk_int8(q, cq, scale, vd, 200),
+            lambda q=q: ft.fused_cosine_topk_int8_plain(q, cq, scale, vd, 200),
+            bound(n_valid * (DIMS + 4) + io, 2 * nq * n_valid * DIMS, "int8")))
     timed["fused_scores_topk"].append((
-        "B=1 k=256", lambda: ft.fused_scores_topk(s1, md, k1, 256, DEAD_SLOT),
-        lambda: ft.fused_scores_topk_plain(s1, md, k1, 256, DEAD_SLOT)))
+        1, "B=1 k=256", lambda: ft.fused_scores_topk(s1, md, k1, 256, DEAD_SLOT),
+        lambda: ft.fused_scores_topk_plain(s1, md, k1, 256, DEAD_SLOT),
+        bound(n_live * 4 + N_ROWS * 4 + 4 + 256 * 8, n_live, "f32")))
+    # the score pass's registers and spills (ptxas, from the build log) and
+    # CTAs an SM at d=DIMS (the occupancy API)
+    ptxas = score_pass_resources(_build.build_log["output"])
+    build = {name: {**ptxas.get(kind, {"regs": "not in the build log (a cached build)"}),
+                    "ctas_per_sm": _build.load().cs_cosine_ctas_per_sm(int(kind == "b"), DIMS)}
+             for name, kind in (("fused_cosine_topk", "a"), ("fused_cosine_topk_int8", "b"))}
     out = {}
     for name, shapes in timed.items():
-        for shape, kern, plain in shapes:
+        for nq, shape, kern, plain, bnd in shapes:
             t_plain_1 = cuda_ms(plain)
             t_kern_1 = cuda_ms(kern)
             t_kern_2 = cuda_ms(kern)
             t_plain_2 = cuda_ms(plain)
-            t_device = device_ms(kern)
-            out.setdefault(name, {
-                "max_abs_err": max(results[name].values()),
-                "ms": min(t_kern_1, t_kern_2),
-                "plain_ms": min(t_plain_1, t_plain_2),
-                "device_ms": t_device,
-            })
+            row = {"ms": min(t_kern_1, t_kern_2), "plain_ms": min(t_plain_1, t_plain_2),
+                   "device_ms": device_ms(kern), **bnd}
+            split = kernel_split(kern)
             log(f"time {name} {shape} N={N_ROWS}: kernel {t_kern_1}/{t_kern_2} ms, plain "
                 f"{t_plain_1}/{t_plain_2} ms (median of 20, plain-kernel-kernel-plain); device "
-                f"ms a call (CUDA graph of 10 calls): kernel {t_device}")
-    # bounds at the reported shapes: a and b at Q=1, k=200 (the corpus read
-    # dominates), c at one score row, k=256, each counting only the rows this
-    # run's data needs (valid corpus rows, live score slots) besides every
-    # row's flag; no one PyTorch call computes a or b (a masked cosine matmul
-    # plus a top-k with the lowest index on ties)
-    n_valid, n_live = int(vd.sum()), int((md != DEAD_SLOT).sum())
-    out["fused_cosine_topk"].update(
-        bound(n_valid * DIMS * 2 + N_ROWS + DIMS * 4 + 200 * 8, 2 * n_valid * DIMS, "bf16"),
-        library_ms=None)
-    out["fused_cosine_topk_int8"].update(
-        bound(n_valid * (DIMS + 4) + N_ROWS + DIMS * 4 + 200 * 8, 2 * n_valid * DIMS, "int8"),
-        library_ms=None)
+                f"ms a call (CUDA graph of 10 calls): kernel {row['device_ms']}; bound "
+                f"{row['bound_ms']} ms ({row['bound_by']}), device share of the bound "
+                f"{row['bound_ms'] / row['device_ms']:.3f}; device us a call by kernel "
+                f"(profiler): {json.dumps(split)}")
+            if name not in out:
+                out[name] = {"max_abs_err": max(results[name].values()), **row}
+            else:   # a's and b's Q=9 row beside the reported Q=1 one
+                out[name].update({f"q{nq}_{key}": v for key, v in row.items()})
+    for name in ("fused_cosine_topk", "fused_cosine_topk_int8"):
+        out[name].update(library_ms=None, score_pass=build[name])
+        log(f"score pass of {name}: {build[name]}")
     boosted = torch.where(md[None, :] == DEAD_SLOT, ft.NEG_INF,
                           s1 * torch.where(md[None, :] == k1[:, None], 3.0, 1.0))
     topk_call = lambda: torch.topk(boosted, 256, dim=1)  # noqa: E731
-    out["fused_scores_topk"].update(
-        bound(n_live * 4 + N_ROWS * 4 + 4 + 256 * 8, n_live, "f32"),
-        library_ms=cuda_ms(topk_call), library_device_ms=device_ms(topk_call))
+    out["fused_scores_topk"].update(library_ms=cuda_ms(topk_call),
+                                    library_device_ms=device_ms(topk_call))
     for name, v in out.items():
         log(f"bound {name}: {v['bound_ms']} ms ({v['bound_by']}); kernel {v['ms']} ms "
             f"(device {v['device_ms']}); library call {v['library_ms']} ms"
             + (f" (device {v['library_device_ms']})" if "library_device_ms" in v else ""))
 
-    # c beyond the main path's k, and the select against merge_topk as a's
-    # and b's second pass over the same partial lists (k=200, Q=1 and 9)
+    # c beyond the main path's k
     for k in (4096, 20000):
         kern = lambda k=k: ft.fused_scores_topk(s1, md, k1, k, DEAD_SLOT)  # noqa: E731
         log(f"time fused_scores_topk B=1 k={k}: kernel {cuda_ms(kern)} ms, device {device_ms(kern)} "
             f"ms; torch.topk {cuda_ms(lambda k=k: torch.topk(boosted, k, dim=1))} ms")
-    for q in (q9[:1].contiguous(), q9):
-        row = {}
-        for pass2 in ("merge", "select", "select", "merge"):
-            kern = lambda q=q, p2=pass2: ft.fused_cosine_topk(q, cb, vd, 200, pass2=p2)  # noqa: E731
-            row.setdefault(pass2, []).append((cuda_ms(kern), device_ms(kern)))
-        merged = ft.fused_cosine_topk(q, cb, vd, 200, pass2="merge")
-        selected = ft.fused_cosine_topk(q, cb, vd, 200, pass2="select")
-        check(torch.equal(merged[0], selected[0]) and torch.equal(merged[1], selected[1]),
-              f"a's two second passes disagree at Q={q.shape[0]} k=200")
-        log(f"time fused_cosine_topk Q={q.shape[0]} k=200, pass 2 merge_topk / radix select "
-            f"(merge-select-select-merge; events ms, device ms): merge {row['merge']}, select "
-            f"{row['select']}; results equal")
     return out
 
 

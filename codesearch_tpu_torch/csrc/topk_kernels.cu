@@ -5,52 +5,61 @@
 //   cs_cosine_topk_int8  <- fused_cosine_topk_int8  (_fused_kernel_int8)    kernel b
 //   cs_scores_topk       <- fused_scores_topk       (_fused_kernel_scores)  kernel c
 //
-// What bounds them on an H100: the two cosine kernels read the whole corpus
-// matrix once per query group (N*d bytes: 201 MB for bf16 and 101 MB for
-// int8 at N=262,144, d=384), so they are bound by device-memory bandwidth
-// (3.35 TB/s), not by arithmetic: a [9,384]x[384,N] product is ~1.8 GFLOP.
-// The scores kernel reads B*N*4 bytes of precomputed scores (1 MB a row,
-// 0.3 us at the memory rate), so what it costs is its launches and the
-// latency of its passes, not bytes.
-//
-// Exactness and tie order: a selection key packs the score into the high 32
-// bits (order-preserving bit transform) and the complemented column index
-// into the low 32 bits, so one unsigned 64-bit descending order is "score
-// desc, then index asc" -- the lowest index wins a tie, as XLA top_k and the
-// Pallas kernels do. Every key is unique. Key 0 is below every real key and
-// pads ragged blocks. Invalid rows and dead slots score -3e38, as in the
-// Pallas kernels.
-//
 // The TPU kernels kept ONE running top-k in VMEM because their grid runs
 // tiles in order on one core. Hopper blocks run in parallel and in no order,
-// so selection is spread over CTAs in passes:
+// so a and b run in two stages, and the second is c's whole kernel:
 //
-// a, b: pass 1. Every CTA owns a contiguous range of `rows` corpus rows. For
-//   a group of up to kQueryGroup queries it computes each score in the kernel
-//   body (the corpus rows are read ONCE for the whole group, each warp
-//   streaming whole rows with 16-byte loads), applies the validity mask, sorts
-//   the block's keys in shared memory (bitonic) and writes its top-kp partial
-//   list, kp = min(k, rows): for k >= rows every key of the block.
-//   Pass 2 for k <= kMergeMaxK: merge_topk, one CTA per query (or per group of
-//   lists, then once more) streams the partial lists and keeps the exact top-k
-//   in a shared-memory buffer of 4,096 or 8,192 keys. Pass 2 above
-//   kMergeMaxK: the radix select below, over the partial lists as key arrays.
+// 1. The score pass of a and b (cosine_scores<kInt8>), bound by bytes. It
+//    reads the corpus once per group of up to 16 queries (N*d bytes: 201 MB
+//    in bf16, 101 MB in int8 at N=262,144, d=384: 0.060 / 0.030 ms at 3.35
+//    TB/s) and writes each query's masked score row, f32 [Q, N] (1 MB a
+//    query). The products are 3.2 GFLOP for a full group of 16, ~3 us of
+//    tensor-core time. Cosine scoring is attention's first product, with the
+//    queries as a 16-row tile and the corpus rows as keys, so the pass is
+//    built from kernel d's pieces (csrc/attention_kernels.cu):
+//    - The queries (f32) are loaded once a CTA into a 16-row A tile in shared
+//      memory, zero past d and past the group's last query. a rounds them to
+//      bf16 (RNE, the plain version's .to(bfloat16)); b quantizes them as
+//      quantize_rows_int8 does (absmax, max(., 1e-12) / 127 and x / scale
+//      with __fdiv_rn, rintf: half to even, clip +-127) and keeps the scales
+//      in shared memory, so its wrapper launches nothing before the kernel.
+//    - A persistent grid (the CTAs that fit on the SMs, split over the query
+//      groups as grid.y) walks 64-row tiles of the corpus. A tile streams in
+//      256-byte chunks of its rows through a 3-stage cp.async ring (two
+//      chunks of 17 KB in flight while a CTA computes a third, 3 CTAs an SM
+//      at d=384), zero-filled past d and past N; rows sit 16 bytes apart in
+//      their bank groups, so the eight rows of an ldmatrix hit eight
+//      different ones. examples/topk_variants.py chose the ring's depth.
+//    - Each of 4 warps holds 16 rows of a tile as two n8 tiles and runs
+//      mma.sync over the chunk: m16n8k16 bf16 -> f32 (a), m16n8k32 s8 -> s32
+//      (b: exact int sums). The A fragments come from ldmatrix on the query
+//      tile, the B fragments from ldmatrix on the corpus rows ([N, d]
+//      row-major is already the .col operand). The pass sorts nothing: the
+//      select reads the score rows.
+//    - After a tile's last chunk the epilogue writes valid[row] ? score :
+//      -3e38, b's score as (s * q_scale) * row_scale with __fmul_rn (the
+//      plain version's order). The pass also zeroes the select's histograms,
+//      so a's and b's wrappers need no memset.
 //
-// c, and a/b above kMergeMaxK: an exact radix select (select_*), which no
-//   shared-memory buffer bounds: any 1 <= k <= n. Its passes over a row of m
-//   keys (c: computed on the fly from scores, slot_meta and boost_kid; a/b:
-//   the partial lists) run as a fixed sequence of five launches, spread over
-//   ceil(m / 1024) CTAs a row, with every decision taken on the device:
+// 2. The radix select (select_*), for every k of a, b and c: any 1 <= k <= n,
+//    bound by its launches and the latency of its passes, not by bytes (c
+//    reads B*N*4 bytes of scores, 1 MB a row, 0.3 us at the memory rate). Its
+//    keys come from a key source: c's boosted scores (ScoreKeys, computed on
+//    the fly from scores, slot_meta and boost_kid), a's and b's score rows
+//    (RowKeys). Its passes over a row of m keys run as a fixed sequence of
+//    five launches, spread over ceil(m / 1024) CTAs a row, with every
+//    decision taken on the device:
 //   - select_hist<0..2>: each CTA builds a shared-memory histogram of one
 //     digit of its keys' score bits (bits 31-20, 19-8, 7-0 of the 32-bit
 //     order-preserving score), levels 1 and 2 only over keys whose higher
 //     digits match the prefix chosen so far, and adds it to the row's global
-//     histogram with atomics. Lanes of a warp with the same digit add once
-//     (__match_any_sync): a row where a third of the scores are exactly 0.0
-//     sends them all to one bin. The last CTA of the row to finish (a ticket
-//     counter after a fence) scans the global histogram, picks the bin that
-//     holds the k-th key and writes the new prefix and the count still needed
-//     in it. After level 2 the prefix is the k-th key's score T exactly, and
+//     histogram with atomics. Each key adds to its bin with a plain shared
+//     atomic: on an H100, adding a warp's equal digits once
+//     (__match_any_sync) cost more than it saved, even on rows a third
+//     exactly 0.0, all in one bin. The last CTA of the row to finish (a
+//     ticket counter after a fence) scans the global histogram, picks the
+//     bin that holds the k-th key and writes the new prefix and the count
+//     still needed in it. After level 2 the prefix is the k-th key's score T exactly, and
 //     `need` keys of score T are still to take; level 2's CTAs also keep their
 //     own 256-bin counts, from which that last CTA writes each CTA's count of
 //     score-T keys before it (ties are then taken in index order).
@@ -66,26 +75,40 @@
 //     spread over k / 128 CTAs of 1,024 threads), for the rare --limit in
 //     the thousands.
 //
+// Exactness and tie order: a selection key packs the score into the high 32
+// bits (order-preserving bit transform) and the complemented column index
+// into the low 32 bits, so one unsigned 64-bit descending order is "score
+// desc, then index asc" -- the lowest index wins a tie, as XLA top_k and the
+// Pallas kernels do. Every key is unique. Key 0 is below every real key.
+// Invalid rows and dead slots score -3e38, as in the Pallas kernels.
+//
 // Every kernel launches on the caller's stream and allocates nothing (the
-// caller passes the scratch, the select's histograms zeroed); every entry
+// caller passes the scratch; c's select histograms zeroed); every entry
 // point returns the CUDA error of its launches (0 on success, negative for a
-// bad argument). cs_init sets the kernels' shared-memory limits once, when
-// the library is loaded.
+// bad argument). cs_topk_init sets the kernels' shared-memory limits once,
+// when the library is loaded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 typedef unsigned long long u64;
 
 namespace {
 
 constexpr float kNegInf = -3.0e38f;
-constexpr int kMergeMaxK = 4096;  // largest k merge_topk takes (a and b only)
-constexpr int kQueryGroup = 16;
-constexpr int kPass1Threads = 256;
-constexpr int kMergeThreads = 1024;
-constexpr int kMergeSlots = 4096;  // smallest merge buffer (keys)
+// the score pass
+constexpr int kQueryTile = 16;               // queries a CTA scores (the mma's M)
+constexpr int kScoreWarps = 4;
+constexpr int kScoreThreads = kScoreWarps * 32;
+constexpr int kTileRows = kScoreWarps * 16;  // corpus rows a tile: 16 a warp (two n8 tiles)
+constexpr int kChunk = 256;                  // bytes of each row a ring stage holds: 8 k-steps
+constexpr int kRowPad = 16;                  // bytes of padding a shared-memory row
+constexpr int kStageBytes = kTileRows * (kChunk + kRowPad);
+constexpr int kStages = 3;
+constexpr int kMaxRowBytes = 2048;           // d <= 1024 (bf16)
 // radix select
 constexpr int kSelThreads = 256;
 constexpr int kSelItems = 4;                        // contiguous keys a thread
@@ -120,24 +143,20 @@ __device__ __forceinline__ u64 make_key(float s, int row) {
   return ((u64)ord_of(s) << 32) | (u64)(~(uint32_t)row);
 }
 
-// Bitonic sort, descending, of nseg consecutive segments of len keys each
-// (len a power of two) in shared memory. All segments advance through the
-// same stages, so a stage costs one barrier however many segments there are.
+// Bitonic sort, descending, of len keys (a power of two) in shared memory.
 // The caller synchronises before the call; the sort ends synchronised.
-__device__ void block_sort_desc(u64* k, int len, int nseg = 1) {
+__device__ void block_sort_desc(u64* k, int len) {
   const int half = len >> 1;
   for (int size = 2; size <= len; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < nseg * half; t += blockDim.x) {
-        const int seg = t / half, i = t - seg * half;
+      for (int i = threadIdx.x; i < half; i += blockDim.x) {
         const int lo = 2 * i - (i & (stride - 1));
-        u64* base = k + seg * len;
-        const u64 a = base[lo];
-        const u64 b = base[lo + stride];
+        const u64 a = k[lo];
+        const u64 b = k[lo + stride];
         const bool desc = (lo & size) == 0;
         if ((a < b) == desc) {
-          base[lo] = b;
-          base[lo + stride] = a;
+          k[lo] = b;
+          k[lo + stride] = a;
         }
       }
       __syncthreads();
@@ -145,267 +164,229 @@ __device__ void block_sort_desc(u64* k, int len, int nseg = 1) {
   }
 }
 
-// Writes the first kp keys of each of the block's nlists sorted lists.
-__device__ void write_partials(const u64* keys, int rows, int nlists, int list0,
-                               int kp, u64* part) {
-  for (int j = 0; j < nlists; ++j) {
-    u64* dst = part + ((size_t)(list0 + j) * gridDim.x + blockIdx.x) * kp;
-    for (int i = threadIdx.x; i < kp; i += blockDim.x) dst[i] = keys[j * rows + i];
-  }
+// ---- stage 1: the score pass of a and b ------------------------------------
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled, src not read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
 }
 
-// Sums QG per-lane partial values across the warp with QG - 1 + (5 - log2 QG)
-// shuffles (a halving butterfly, instead of 5 per value): afterwards every
-// lane whose id has its low (5 - log2 QG) bits clear holds in v[0] the total
-// of query slot lane >> (5 - log2 QG). The order of the sums is fixed.
-template <int QG, typename T>
-__device__ __forceinline__ void warp_reduce_slots(T (&v)[QG], int lane) {
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 tiles of 16-bit elements from shared memory, lane l naming row
+// (l & 7) of tile (l >> 3); r[i] holds tile i's row g = lane / 4, elements
+// 2t, 2t + 1 (t = lane % 4): bytes 4t..4t+3 of the tile's 16-byte row.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// D += A (16 x 32 bytes, row) * B (32 bytes x 8, col): a's bf16 -> f32
+// (m16n8k16) and b's s8 -> s32 (m16n8k32). In bytes both take the same
+// fragments: a0 (row g, bytes 4t..4t+3), a1 (row g + 8), a2 (row g, bytes
+// 16 + 4t..), a3 (row g + 8, bytes 16 + 4t..); b0 (bytes 4t..4t+3 of column
+// g), b1 (bytes 16 + 4t.. of column g); d0 d1 (row g, columns 2t, 2t + 1),
+// d2 d3 (row g + 8, the same columns).
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// quantize_rows_int8's rounding of one value: round(x / scale), half to
+// even, clipped to +-127.
+__device__ __forceinline__ uint32_t quantize(float x, float scale) {
+  const float r = fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -127.0f), 127.0f);
+  return (uint32_t)(uint8_t)(int8_t)r;
+}
+
+constexpr int kQueryVecs = kMaxRowBytes / 2 / 4 / 32;  // float4s a lane holds of a query
+
+// The CTA's queries [q0, q0 + qn) (f32 [nq, d]) as the A tile: bf16 (a) or
+// int8 with their scales in qscale (b), zero past d and past qn. One warp a
+// query; the tile is synchronised by the caller's next barrier.
+template <bool kInt8>
+__device__ void load_queries(const float* __restrict__ q, int q0, int qn, int d,
+                             unsigned char* qt, int qstride, float* qscale) {
+  for (int i = threadIdx.x; i < kQueryTile * qstride / 16; i += kScoreThreads)
+    reinterpret_cast<uint4*>(qt)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nv = d >> 2;
+  for (int j = warp; j < qn; j += kScoreWarps) {
+    const float4* src = reinterpret_cast<const float4*>(q + (size_t)(q0 + j) * d);
+    float4 v[kQueryVecs];
+    float amax = 0.0f;
 #pragma unroll
-  for (int step = 0; step < 5; ++step) {
-    const int o = 16 >> step;
-    const int c = QG >> step;  // values a lane still holds before this step
-    if (c > 1) {
-      const bool hi = (lane & o) != 0;
+    for (int i = 0; i < kQueryVecs; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = c < nv ? __ldg(src + c) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[i].x), fabsf(v[i].y)),
+                               fmaxf(fabsf(v[i].z), fabsf(v[i].w))));
+    }
+    unsigned char* row = qt + j * qstride;
+    if (kInt8) {
 #pragma unroll
-      for (int i = 0; i < c / 2; ++i) {
-        const T send = hi ? v[i] : v[i + c / 2];
-        const T keep = hi ? v[i + c / 2] : v[i];
-        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      const float scale = __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
+      if (lane == 0) qscale[j] = scale;
+#pragma unroll
+      for (int i = 0; i < kQueryVecs; ++i) {
+        const int c = lane + 32 * i;
+        if (c < nv)
+          *reinterpret_cast<uint32_t*>(row + 4 * c) =
+              quantize(v[i].x, scale) | quantize(v[i].y, scale) << 8 |
+              quantize(v[i].z, scale) << 16 | quantize(v[i].w, scale) << 24;
       }
     } else {
-      v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+#pragma unroll
+      for (int i = 0; i < kQueryVecs; ++i) {
+        const int c = lane + 32 * i;
+        if (c < nv)
+          *reinterpret_cast<uint2*>(row + 8 * c) =
+              make_uint2(pack_bf16(v[i].x, v[i].y), pack_bf16(v[i].z, v[i].w));
+      }
     }
   }
 }
 
-template <int QG>
-__device__ __forceinline__ int slot_shift() {
-  return QG == 1 ? 5 : QG == 2 ? 4 : QG == 4 ? 3 : QG == 8 ? 2 : 1;
+__host__ __device__ __forceinline__ int query_stride(int row_bytes) {
+  return (row_bytes + kChunk - 1) / kChunk * kChunk + kRowPad;
 }
 
-constexpr int kRowsPerStep = 2;  // corpus rows a warp scores at once
+size_t score_smem(int row_bytes) {
+  return (size_t)kQueryTile * query_stride(row_bytes) + (size_t)kStages * kStageBytes;
+}
 
-// ---- pass 1: bf16 cosine scores (q . c, bf16 inputs, f32 accumulation) ----
-// Shared memory: keys [QG][rows], then the group's queries as f32, laid out
-// [query][half][vector] in float4 so that lane v reads its 16 bytes next to
-// lane v+1's (no bank conflicts); unused query slots hold zeros.
-template <int QG>
-__global__ void __launch_bounds__(kPass1Threads, 2)
-cosine_partial_bf16(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ c,
-                    const uint8_t* __restrict__ valid, int nq, int n, int d,
-                    int rows, int kp, u64* __restrict__ part) {
+// scores [nq, n]: each query's masked score row. zero [n_zero]: the select's
+// histograms and counters, zeroed here for the select that follows.
+template <bool kInt8>
+__global__ void __launch_bounds__(kScoreThreads)
+cosine_scores(const float* __restrict__ q, const unsigned char* __restrict__ corpus,
+              const float* __restrict__ row_scale, const uint8_t* __restrict__ valid, int nq,
+              int n, int d, int row_bytes, float* __restrict__ scores, int* __restrict__ zero,
+              int n_zero) {
+  using Acc = typename std::conditional<kInt8, int, float>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  u64* keys = reinterpret_cast<u64*>(smem);
-  float4* qf = reinterpret_cast<float4*>(keys + QG * rows);
-  const int nvec = d >> 3;  // 8 bf16 values per 16-byte load
-  const int q0 = blockIdx.y * QG;
-  const int qn = min(QG, nq - q0);
-  const int r0 = blockIdx.x * rows;
-  for (int i = threadIdx.x; i < QG * 2 * nvec; i += blockDim.x) {
-    const int j = i / (2 * nvec), h = (i / nvec) & 1, v = i % nvec;
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (j < qn) {
-      const __nv_bfloat16* src = q + (size_t)(q0 + j) * d + v * 8 + h * 4;
-      f = make_float4(__bfloat162float(src[0]), __bfloat162float(src[1]),
-                      __bfloat162float(src[2]), __bfloat162float(src[3]));
-    }
-    qf[i] = f;
+  __shared__ float qscale[kQueryTile];
+  const int n_chunks = (row_bytes + kChunk - 1) / kChunk;
+  const int qstride = query_stride(row_bytes);
+  unsigned char* qt = smem;                           // [kQueryTile][qstride]
+  unsigned char* ring = smem + kQueryTile * qstride;  // [kStages][kTileRows][kChunk + kRowPad]
+  const int q0 = blockIdx.y * kQueryTile, qn = min(kQueryTile, nq - q0);
+  {
+    const int stride = gridDim.x * gridDim.y * kScoreThreads;
+    for (int i = (blockIdx.y * gridDim.x + blockIdx.x) * kScoreThreads + threadIdx.x; i < n_zero;
+         i += stride)
+      zero[i] = 0;
   }
-  __syncthreads();
+
+  // the CTA's items: chunk c of its i-th tile, blockIdx.x + i * gridDim.x, is
+  // item i * n_chunks + c and lives in ring stage item % kStages
+  const int n_tiles = (n + kTileRows - 1) / kTileRows;
+  const int my_tiles = (int)blockIdx.x < n_tiles ? (n_tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int n_items = my_tiles * n_chunks;
+  // every call commits a copy group, empty or not, so waiting for all but
+  // the newest kStages - 2 groups makes the current item arrive
+  auto copy = [&](int item) {
+    if (item < n_items) {
+      const int tile = blockIdx.x + (item / n_chunks) * gridDim.x;
+      const int c0 = (item % n_chunks) * kChunk;
+      unsigned char* st = ring + (item % kStages) * kStageBytes;
+#pragma unroll
+      for (int j = 0; j < kTileRows * (kChunk / 16) / kScoreThreads; ++j) {
+        const int i = threadIdx.x + j * kScoreThreads;
+        const int r = i / (kChunk / 16), b = (i % (kChunk / 16)) * 16;
+        const int row = tile * kTileRows + r;
+        const bool ok = row < n && c0 + b < row_bytes;
+        cp_async16(st + r * (kChunk + kRowPad) + b,
+                   ok ? corpus + (size_t)row * row_bytes + c0 + b : corpus, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < kStages - 1; ++s) copy(s);  // in flight while the queries load
+  load_queries<kInt8>(q, q0, qn, d, qt, qstride, qscale);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int step = (blockDim.x >> 5) * kRowsPerStep;
-  for (int r = warp * kRowsPerStep; r < rows; r += step) {
-    float acc[kRowsPerStep][QG];
+  const int g = lane >> 2, t = lane & 3;
+  // ldmatrix rows: A, query (lane & 15) at byte (lane >> 4) * 16 of a k-step;
+  // B, corpus row 16 warp + (lane & 7) at byte (lane >> 3) * 16 of two k-steps
+  const unsigned char* a_at = qt + (lane & 15) * qstride + (lane >> 4) * 16;
+  const int b_at = (warp * 16 + (lane & 7)) * (kChunk + kRowPad) + (lane >> 3) * 16;
+  Acc acc[2][4] = {};
+  for (int item = 0; item < n_items; ++item) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // the item has arrived, and every warp is done with item - 1's stage
+    copy(item + kStages - 1);
+    const int ch = item % n_chunks;
+    const unsigned char* st = ring + (item % kStages) * kStageBytes + b_at;
+    const unsigned char* at = a_at + ch * kChunk;
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerStep; ++rr)
-#pragma unroll
-      for (int j = 0; j < QG; ++j) acc[rr][j] = 0.0f;
-    for (int v = lane; v < nvec; v += 32) {
-      float cv[kRowsPerStep][8];
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerStep; ++rr) {
-        const int row = r0 + r + rr;
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (row < n) raw = __ldg(reinterpret_cast<const uint4*>(c + (size_t)row * d) + v);
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const float2 f = __bfloat1622float2(h[t]);
-          cv[rr][2 * t] = f.x;
-          cv[rr][2 * t + 1] = f.y;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < QG; ++j) {
-        const float4 a = qf[(2 * j) * nvec + v];
-        const float4 b = qf[(2 * j + 1) * nvec + v];
-#pragma unroll
-        for (int rr = 0; rr < kRowsPerStep; ++rr) {
-          float s = acc[rr][j];
-          s = fmaf(cv[rr][0], a.x, s);
-          s = fmaf(cv[rr][1], a.y, s);
-          s = fmaf(cv[rr][2], a.z, s);
-          s = fmaf(cv[rr][3], a.w, s);
-          s = fmaf(cv[rr][4], b.x, s);
-          s = fmaf(cv[rr][5], b.y, s);
-          s = fmaf(cv[rr][6], b.z, s);
-          s = fmaf(cv[rr][7], b.w, s);
-          acc[rr][j] = s;
-        }
-      }
+    for (int kk = 0; kk < kChunk; kk += 64) {
+      uint32_t a0[4], a1[4], b0[4], b1[4];
+      ldmatrix_x4(a0, at + kk);
+      ldmatrix_x4(a1, at + kk + 32);
+      ldmatrix_x4(b0, st + kk);
+      ldmatrix_x4(b1, st + 8 * (kChunk + kRowPad) + kk);
+      mma(acc[0], a0, b0[0], b0[1]);
+      mma(acc[1], a0, b1[0], b1[1]);
+      mma(acc[0], a1, b0[2], b0[3]);
+      mma(acc[1], a1, b1[2], b1[3]);
     }
+    if (ch == n_chunks - 1) {
+      const int row0 = (blockIdx.x + (item / n_chunks) * gridDim.x) * kTileRows + warp * 16 + 2 * t;
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerStep; ++rr) {
-      warp_reduce_slots<QG>(acc[rr], lane);
-      const int j = lane >> slot_shift<QG>();
-      const int row = r0 + r + rr;
-      if ((lane & ((1 << slot_shift<QG>()) - 1)) == 0 && j < qn && r + rr < rows) {
-        const bool ok = row < n;
-        keys[j * rows + r + rr] = ok ? make_key(valid[row] ? acc[rr][0] : kNegInf, row) : 0ull;
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = row0 + 8 * nt + e;
+          if (row >= n) continue;
+          const bool ok = valid[row] != 0;
+          const float rs = kInt8 ? row_scale[row] : 1.0f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int qi = g + 8 * h;
+            if (qi >= qn) continue;
+            const Acc s = acc[nt][2 * h + e];
+            // b: (s * q_scale) * row_scale, the order of _fused_kernel_int8
+            const float v = kInt8 ? __fmul_rn(__fmul_rn((float)s, qscale[qi]), rs) : (float)s;
+            scores[(size_t)(q0 + qi) * n + row] = ok ? v : kNegInf;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] = 0;
       }
     }
   }
-  __syncthreads();
-  block_sort_desc(keys, rows, qn);
-  write_partials(keys, rows, qn, q0, kp, part);
+  cp_async_wait<0>();  // no copy outlives the CTA (the tail's groups are empty)
 }
 
-// ---- pass 1: int8 cosine scores (int8 x int8 -> int32, f32 rescale) -------
-// Shared memory: keys [QG][rows], then the group's int8 queries [QG][d]
-// (lane v reads 16 contiguous bytes next to lane v+1's).
-template <int QG>
-__global__ void __launch_bounds__(kPass1Threads, 2)
-cosine_partial_int8(const int8_t* __restrict__ q, const float* __restrict__ q_scale,
-                    const int8_t* __restrict__ c, const float* __restrict__ row_scale,
-                    const uint8_t* __restrict__ valid, int nq, int n, int d,
-                    int rows, int kp, u64* __restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  u64* keys = reinterpret_cast<u64*>(smem);
-  int8_t* qs = reinterpret_cast<int8_t*>(keys + QG * rows);
-  const int nvec = d >> 4;  // 16 int8 values per 16-byte load
-  const int q0 = blockIdx.y * QG;
-  const int qn = min(QG, nq - q0);
-  const int r0 = blockIdx.x * rows;
-  for (int i = threadIdx.x; i < QG * d; i += blockDim.x)
-    qs[i] = i < qn * d ? q[(size_t)q0 * d + i] : (int8_t)0;
-  __syncthreads();
-  const int4* qv = reinterpret_cast<const int4*>(qs);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int step = (blockDim.x >> 5) * kRowsPerStep;
-  for (int r = warp * kRowsPerStep; r < rows; r += step) {
-    int acc[kRowsPerStep][QG];
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerStep; ++rr)
-#pragma unroll
-      for (int j = 0; j < QG; ++j) acc[rr][j] = 0;
-    for (int v = lane; v < nvec; v += 32) {
-      int4 cw[kRowsPerStep];
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerStep; ++rr) {
-        const int row = r0 + r + rr;
-        cw[rr] = make_int4(0, 0, 0, 0);
-        if (row < n) cw[rr] = __ldg(reinterpret_cast<const int4*>(c + (size_t)row * d) + v);
-      }
-#pragma unroll
-      for (int j = 0; j < QG; ++j) {
-        const int4 a = qv[j * nvec + v];
-#pragma unroll
-        for (int rr = 0; rr < kRowsPerStep; ++rr) {
-          int s = acc[rr][j];
-          s = __dp4a(cw[rr].x, a.x, s);
-          s = __dp4a(cw[rr].y, a.y, s);
-          s = __dp4a(cw[rr].z, a.z, s);
-          s = __dp4a(cw[rr].w, a.w, s);
-          acc[rr][j] = s;
-        }
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerStep; ++rr) {
-      warp_reduce_slots<QG>(acc[rr], lane);
-      const int j = lane >> slot_shift<QG>();
-      const int row = r0 + r + rr;
-      if ((lane & ((1 << slot_shift<QG>()) - 1)) == 0 && j < qn && r + rr < rows) {
-        u64 key = 0ull;
-        if (row < n) {
-          // (s * q_scale) * row_scale, the order of _fused_kernel_int8
-          const float s = __fmul_rn(__fmul_rn((float)acc[rr][0], q_scale[q0 + j]), row_scale[row]);
-          key = make_key(valid[row] ? s : kNegInf, row);
-        }
-        keys[j * rows + r + rr] = key;
-      }
-    }
-  }
-  __syncthreads();
-  block_sort_desc(keys, rows, qn);
-  write_partials(keys, rows, qn, q0, kp, part);
-}
-
-// ---- pass 2: exact top-k of a group of sorted partial lists ---------------
-// CTA b merges lists [g * per_group, (g + 1) * per_group) of query q, where
-// q = b / groups and g = b % groups; each list holds kp keys. The result is
-// written as keys (out_keys, for a further merge) or as (vals, idx).
-// Shared memory: SLOTS keys (SLOTS >= kpad + kMergeThreads): the running
-// top-kpad, then room for the survivors of a few candidate rounds. SLOTS is
-// a template argument so that the sort's index arithmetic folds to shifts.
-template <int SLOTS>
-__global__ void __launch_bounds__(kMergeThreads)
-merge_topk(const u64* __restrict__ part, int n_lists, int kp, int per_group, int groups,
-           int k, int kpad, u64* __restrict__ out_keys, float* __restrict__ vals,
-           int* __restrict__ idx) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  u64* keys = reinterpret_cast<u64*>(smem);
-  __shared__ int fill;
-  __shared__ u64 thr;
-  const int q = blockIdx.x / groups, g = blockIdx.x % groups;
-  const int l0 = g * per_group;
-  const int l1 = min(n_lists, l0 + per_group);
-  const u64* cand = part + ((size_t)q * n_lists + l0) * kp;
-  const int total = (l1 - l0) * kp;
-  const int chunk = SLOTS - kpad;
-  for (int i = threadIdx.x; i < SLOTS; i += blockDim.x) keys[i] = 0ull;
-  if (threadIdx.x == 0) {
-    fill = 0;
-    thr = 0ull;
-  }
-  __syncthreads();
-  for (int base = 0; base < total; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    if (i < total) {
-      const u64 key = cand[i];
-      if (key > thr) keys[kpad + atomicAdd(&fill, 1)] = key;
-    }
-    __syncthreads();
-    const int f = fill;
-    const bool last = base + (int)blockDim.x >= total;
-    __syncthreads();  // every thread has read fill before it changes
-    if (f > chunk - (int)blockDim.x || (last && f > 0)) {
-      for (int j = kpad + f + threadIdx.x; j < SLOTS; j += blockDim.x) keys[j] = 0ull;
-      __syncthreads();
-      block_sort_desc(keys, SLOTS);
-      if (threadIdx.x == 0) {
-        fill = 0;
-        thr = keys[k - 1];
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    const u64 key = keys[i];
-    const size_t o = (size_t)blockIdx.x * k + i;
-    if (out_keys != nullptr) {
-      out_keys[o] = key;
-    } else {
-      vals[o] = float_of((uint32_t)(key >> 32));
-      idx[o] = (int)(~(uint32_t)key);
-    }
-  }
-}
-
-// ---- the radix select -------------------------------------------------------
+// ---- stage 2: the radix select ---------------------------------------------
 // Where its scratch lies. Row b's zeroed ints start at zero + b * kZeroInts:
 // hist0 [kBinsHi], hist1 [kBinsHi], hist2 [kBinsLo], then tickets[3] and
 // fill; state [nq][kStateInts] (slot L = 4 ints written after level L);
@@ -467,17 +448,15 @@ struct ScoreKeys {
   __device__ Row row(int b) const { return Row{scores + (size_t)b * n, meta, kid[b], dead}; }
 };
 
-// Keys of a and b above kMergeMaxK: the partial lists, m keys a query. A
-// list is sorted and lists follow their rows, so keys of one score come in
-// index order, as the select takes ties.
-struct ListKeys {
-  const u64* keys;
-  int m;
+// Keys of a and b: the score rows of the score pass, the mask already in them.
+struct RowKeys {
+  const float* scores;
+  int n;
   struct Row {
-    const u64* k;
-    __device__ __forceinline__ u64 operator()(int i) const { return k[i]; }
+    const float* s;
+    __device__ __forceinline__ u64 operator()(int i) const { return make_key(s[i], i); }
   };
-  __device__ Row row(int b) const { return Row{keys + (size_t)b * m}; }
+  __device__ Row row(int b) const { return Row{scores + (size_t)b * n}; }
 };
 
 // Exclusive prefix sum of v over the block's threads in order, and the
@@ -567,9 +546,7 @@ select_hist(Src src, int m, int k, Select sel) {
       const uint32_t o = (uint32_t)(row(i) >> 32);
       if (LEVEL == 0 || (o >> (kShift + kBits)) == prefix) digit = (int)((o >> kShift) & (NB - 1));
     }
-    const unsigned peers = __match_any_sync(0xffffffffu, digit);
-    if (digit >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
-      atomicAdd(&h[digit], __popc(peers));
+    if (digit >= 0) atomicAdd(&h[digit], 1);
   }
   __syncthreads();
   int* gh = sel.hist(b, LEVEL);
@@ -655,7 +632,8 @@ __device__ __forceinline__ void write_result(float* vals, int* idx, size_t o, u6
   idx[o] = (int)(~(uint32_t)key);
 }
 
-// k <= kSortMax: one CTA a row sorts the winners above T in shared memory.
+// k <= kSortMax: one CTA a row sorts the winners above T in shared memory
+// (a thread for each compare-exchange, up to 1,024).
 __global__ void __launch_bounds__(kSortThreads)
 select_sort(Select sel, int k, float* __restrict__ vals, int* __restrict__ idx) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -727,7 +705,9 @@ int select_topk(const Src& src, int nq, int m, int k, u64* scratch, int* zero, f
   if (k <= kSortMax) {
     int len = 1;
     while (len < k) len <<= 1;
-    select_sort<<<nq, kSortThreads, (size_t)len * sizeof(u64), s>>>(sel, k, vals, idx);
+    // a thread for each compare-exchange of a stage: fewer warps at each barrier
+    const int threads = len / 2 < 32 ? 32 : len / 2 < kSortThreads ? len / 2 : kSortThreads;
+    select_sort<<<nq, threads, (size_t)len * sizeof(u64), s>>>(sel, k, vals, idx);
   } else {
     select_rank<<<dim3((k + kRankWinners - 1) / kRankWinners, nq), kRankThreads, 0, s>>>(
         sel, k, vals, idx);
@@ -735,128 +715,57 @@ int select_topk(const Src& src, int nq, int m, int k, u64* scratch, int* zero, f
   return (int)cudaGetLastError();
 }
 
-bool is_pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+// u64 entries of a's and b's score rows [nq][n] (f32), which precede the
+// select's scratch.
+size_t score_entries(int nq, int n) { return ((size_t)nq * n + 1) / 2; }
 
-int next_pow2(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
+bool bad_cosine(const void* q, const void* corpus, int nq, int n, int k, int row_bytes) {
+  return nq < 1 || nq > 65535 || n < 1 || k < 1 || k > n || row_bytes < 16 ||
+         row_bytes % 16 != 0 || row_bytes > kMaxRowBytes ||
+         (((uintptr_t)q | (uintptr_t)corpus) & 15) != 0;
 }
 
-// Candidates one pass-2 CTA merges before the groups' results are merged
-// once more: splitting a query's partial lists over several CTAs keeps the
-// merge parallel when kp * n_cta is large (k in the hundreds).
-constexpr int kMergeGroupCandidates = 8192;
-
-int lists_per_group(int n_lists, int kp) {
-  const int per = (kMergeGroupCandidates + kp - 1) / kp;
-  return per < n_lists ? per : n_lists;
+// CTAs of the score pass an SM at this row width (0 on an error).
+template <bool kInt8>
+int score_ctas_per_sm(int row_bytes) {
+  int occ = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, cosine_scores<kInt8>, kScoreThreads,
+                                                    score_smem(row_bytes)) != cudaSuccess)
+    return 0;
+  return occ;
 }
 
-// u64 entries of scratch that need no initialisation: for a and b (rows > 0)
-// the partial lists [nq][n_cta][kp], then merge_topk's second-level keys or
-// the select's scratch; for c (rows == 0) the select's scratch over n keys.
-size_t scratch_entries(int nq, int n, int k, int rows, bool select) {
-  if (rows == 0) return select_entries(nq, n, k);
-  const int n_cta = (n + rows - 1) / rows;
-  const int kp = k < rows ? k : rows;
-  const size_t lists = (size_t)nq * n_cta * kp;
-  if (select) return lists + select_entries(nq, n_cta * kp, k);
-  const int per = lists_per_group(n_cta, kp);
-  const int groups = (n_cta + per - 1) / per;
-  return lists + (groups > 1 ? (size_t)nq * groups * k : 0);
-}
-
-template <int SLOTS>
-int merge_slots(u64* part, int nq, int n_cta, int kp, int k, int kpad, float* vals, int* idx,
-                cudaStream_t s) {
-  const size_t smem = (size_t)SLOTS * sizeof(u64);
-  const int per = lists_per_group(n_cta, kp);
-  const int groups = (n_cta + per - 1) / per;
-  if (groups == 1) {
-    merge_topk<SLOTS><<<nq, kMergeThreads, smem, s>>>(part, n_cta, kp, n_cta, 1, k, kpad,
-                                                      nullptr, vals, idx);
-    return (int)cudaGetLastError();
-  }
-  u64* level = part + (size_t)nq * n_cta * kp;
-  merge_topk<SLOTS><<<nq * groups, kMergeThreads, smem, s>>>(part, n_cta, kp, per, groups, k,
-                                                             kpad, level, nullptr, nullptr);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  merge_topk<SLOTS><<<nq, kMergeThreads, smem, s>>>(level, groups, k, groups, 1, k, kpad,
-                                                    nullptr, vals, idx);
-  return (int)cudaGetLastError();
-}
-
-// Pass 2 of a and b over the partial lists in `part` ([nq, n_cta, kp]
-// keys): merge_topk (k up to 2048 in a 4,096-key buffer of 32 KB, larger k
-// in an 8,192-key one of 64 KB), or the radix select over the lists.
-int pass2(u64* part, int* zero, bool select, int nq, int n_cta, int kp, int k, float* vals,
-          int* idx, cudaStream_t s) {
-  if (select) {
-    const int m = n_cta * kp;
-    return select_topk(ListKeys{part, m}, nq, m, k, part + (size_t)nq * m, zero, vals, idx, s);
-  }
-  const int kpad = next_pow2(k);
-  if (kpad + 2 * kMergeThreads <= kMergeSlots)
-    return merge_slots<kMergeSlots>(part, nq, n_cta, kp, k, kpad, vals, idx, s);
-  return merge_slots<2 * kMergeSlots>(part, nq, n_cta, kp, k, kpad, vals, idx, s);
-}
-
-bool bad_cosine(int nq, int n, int k, int rows, int select, const void* zero) {
-  return nq < 1 || nq > 65535 || n < 1 || k < 1 || k > n || !is_pow2(rows) || rows < 64 ||
-         rows > 4096 || (!select && k > kMergeMaxK) || (select && zero == nullptr) ||
-         (long long)((n + rows - 1) / rows) * (k < rows ? k : rows) > 0x7fffffffLL;
-}
-
-// Queries scored per corpus pass: the smallest power of two >= nq, at most
-// kQueryGroup (more queries take several passes over the corpus).
-int query_group(int nq) { return nq >= kQueryGroup ? kQueryGroup : next_pow2(nq); }
-
-template <int QG>
-int launch_cosine_bf16(const void* q, const void* corpus, const void* valid, int nq, int n,
-                       int d, int k, int rows, int select, void* part, void* zero, void* vals,
-                       void* idx, void* stream) {
+// The score pass over a persistent grid (the CTAs that fit on the card,
+// split over the query groups), then the select over its score rows.
+template <bool kInt8>
+int launch_cosine(const void* q, const void* corpus, const void* row_scale, const void* valid,
+                  int nq, int n, int d, int k, void* part, void* zero, void* vals, void* idx,
+                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int n_cta = (n + rows - 1) / rows;
-  const int kp = k < rows ? k : rows;
-  const size_t smem = (size_t)QG * rows * sizeof(u64) + (size_t)QG * d * sizeof(float);
-  dim3 grid(n_cta, (nq + QG - 1) / QG);
-  cosine_partial_bf16<QG><<<grid, kPass1Threads, smem, s>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)corpus, (const uint8_t*)valid, nq, n,
-      d, rows, kp, (u64*)part);
-  const cudaError_t e = cudaGetLastError();
+  const int row_bytes = kInt8 ? d : 2 * d;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  return pass2((u64*)part, (int*)zero, select, nq, n_cta, kp, k, (float*)vals, (int*)idx, s);
-}
-
-template <int QG>
-int launch_cosine_int8(const void* q, const void* q_scale, const void* corpus,
-                       const void* row_scale, const void* valid, int nq, int n, int d, int k,
-                       int rows, int select, void* part, void* zero, void* vals, void* idx,
-                       void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int n_cta = (n + rows - 1) / rows;
-  const int kp = k < rows ? k : rows;
-  const size_t smem = (size_t)QG * rows * sizeof(u64) + (size_t)QG * d;
-  dim3 grid(n_cta, (nq + QG - 1) / QG);
-  cosine_partial_int8<QG><<<grid, kPass1Threads, smem, s>>>(
-      (const int8_t*)q, (const float*)q_scale, (const int8_t*)corpus, (const float*)row_scale,
-      (const uint8_t*)valid, nq, n, d, rows, kp, (u64*)part);
-  const cudaError_t e = cudaGetLastError();
+  const int occ = score_ctas_per_sm<kInt8>(row_bytes);
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  const int groups = (nq + kQueryTile - 1) / kQueryTile;
+  const int n_tiles = (n + kTileRows - 1) / kTileRows;
+  const int ctas = sms * occ / groups;
+  const int gx = ctas < 1 ? 1 : ctas < n_tiles ? ctas : n_tiles;
+  float* scores = (float*)part;
+  cosine_scores<kInt8><<<dim3(gx, groups), kScoreThreads, score_smem(row_bytes), s>>>(
+      (const float*)q, (const unsigned char*)corpus, (const float*)row_scale,
+      (const uint8_t*)valid, nq, n, d, row_bytes, scores, (int*)zero, nq * kZeroInts);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return pass2((u64*)part, (int*)zero, select, nq, n_cta, kp, k, (float*)vals, (int*)idx, s);
+  return select_topk(RowKeys{scores, n}, nq, n, k, (u64*)part + score_entries(nq, n),
+                     (int*)zero, (float*)vals, (int*)idx, s);
 }
 
 template <class K>
 cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-template <int QG>
-cudaError_t allow_pass1(int bytes) {
-  cudaError_t e = allow_smem(cosine_partial_bf16<QG>, bytes);
-  return e != cudaSuccess ? e : allow_smem(cosine_partial_int8<QG>, bytes);
 }
 
 }  // namespace
@@ -867,28 +776,25 @@ extern "C" {
 // device (above the default 48 KB only after this call); called once, when
 // the library is loaded.
 int cs_topk_init() {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess) e = allow_pass1<1>(optin);
-  if (e == cudaSuccess) e = allow_pass1<2>(optin);
-  if (e == cudaSuccess) e = allow_pass1<4>(optin);
-  if (e == cudaSuccess) e = allow_pass1<8>(optin);
-  if (e == cudaSuccess) e = allow_pass1<16>(optin);
-  if (e == cudaSuccess) e = allow_smem(merge_topk<kMergeSlots>, kMergeSlots * (int)sizeof(u64));
-  if (e == cudaSuccess)
-    e = allow_smem(merge_topk<2 * kMergeSlots>, 2 * kMergeSlots * (int)sizeof(u64));
+  cudaError_t e = allow_smem(cosine_scores<false>, (int)score_smem(kMaxRowBytes));
+  if (e == cudaSuccess) e = allow_smem(cosine_scores<true>, (int)score_smem(kMaxRowBytes / 2));
   if (e == cudaSuccess) e = allow_smem(select_sort, kSortMax * (int)sizeof(u64));
   return (int)e;
 }
 
 // u64 entries of scratch the top-k entry points need: zeroed == 0, the
-// scratch that needs no initialisation (rows: the cosine kernels' pass-1
-// rows, 0 for cs_scores_topk; select: whether pass 2 is the radix select);
-// zeroed == 1, the select's histograms and counters, which must be zero.
-long long cs_scratch_entries(int nq, int n, int k, int rows, int select, int zeroed) {
-  if (zeroed) return select ? ((long long)nq * kZeroInts + 1) / 2 : 0;
-  return (long long)scratch_entries(nq, n, k, rows, select != 0);
+// scratch that needs no initialisation (score_rows: a's and b's score rows
+// [nq][n] before the select's scratch; 0 for cs_scores_topk); zeroed == 1,
+// the select's histograms and counters (c's caller zeroes them, a's and b's
+// score pass does).
+long long cs_scratch_entries(int nq, int n, int k, int score_rows, int zeroed) {
+  if (zeroed) return ((long long)nq * kZeroInts + 1) / 2;
+  return (long long)((score_rows ? score_entries(nq, n) : 0) + select_entries(nq, n, k));
+}
+
+// CTAs of a's (int8 == 0) or b's score pass an SM at width d, as launched.
+int cs_cosine_ctas_per_sm(int int8, int d) {
+  return int8 ? score_ctas_per_sm<true>(d) : score_ctas_per_sm<false>(2 * d);
 }
 
 const char* cs_error_string(int err) {
@@ -896,40 +802,29 @@ const char* cs_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// `part` and `zero`: the scratch of cs_scratch_entries(nq, n, k, rows,
-// select, 0 / 1), `zero` zeroed (unused when select is 0). select == 0 takes
-// merge_topk as pass 2 (k <= 4096), select == 1 the radix select.
-int cs_cosine_topk_bf16(const void* q, const void* corpus, const void* valid, int nq,
-                        int n, int d, int k, int rows, int select, void* part, void* zero,
-                        void* vals, void* idx, void* stream) {
-  if (bad_cosine(nq, n, k, rows, select, zero) || d < 8 || d % 8 != 0 || d > 1024)
-    return kErrBadArg;
-  switch (query_group(nq)) {
-    case 1: return launch_cosine_bf16<1>(q, corpus, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
-    case 2: return launch_cosine_bf16<2>(q, corpus, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
-    case 4: return launch_cosine_bf16<4>(q, corpus, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
-    case 8: return launch_cosine_bf16<8>(q, corpus, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
-    default: return launch_cosine_bf16<16>(q, corpus, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
-  }
+// Kernel a: q f32 [nq, d] (rounded to bf16 in the kernel), corpus bf16 [n,
+// d], valid u8 [n]; `part` and `zero` as cs_scratch_entries(nq, n, k, 1,
+// 0 / 1) give them (`zero` need not be zeroed).
+int cs_cosine_topk_bf16(const void* q, const void* corpus, const void* valid, int nq, int n,
+                        int d, int k, void* part, void* zero, void* vals, void* idx,
+                        void* stream) {
+  if (bad_cosine(q, corpus, nq, n, k, 2 * d) || d < 8) return kErrBadArg;
+  return launch_cosine<false>(q, corpus, nullptr, valid, nq, n, d, k, part, zero, vals, idx,
+                              stream);
 }
 
-int cs_cosine_topk_int8(const void* q, const void* q_scale, const void* corpus,
-                        const void* row_scale, const void* valid, int nq, int n, int d,
-                        int k, int rows, int select, void* part, void* zero, void* vals,
-                        void* idx, void* stream) {
-  if (bad_cosine(nq, n, k, rows, select, zero) || d < 16 || d % 16 != 0 || d > 1024)
-    return kErrBadArg;
-  switch (query_group(nq)) {
-    case 1: return launch_cosine_int8<1>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
-    case 2: return launch_cosine_int8<2>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
-    case 4: return launch_cosine_int8<4>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
-    case 8: return launch_cosine_int8<8>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
-    default: return launch_cosine_int8<16>(q, q_scale, corpus, row_scale, valid, nq, n, d, k, rows, select, part, zero, vals, idx, stream);
-  }
+// Kernel b: q f32 [nq, d] (quantized in the kernel), corpus int8 [n, d] with
+// row_scale f32 [n]; the rest as for kernel a.
+int cs_cosine_topk_int8(const void* q, const void* corpus, const void* row_scale,
+                        const void* valid, int nq, int n, int d, int k, void* part, void* zero,
+                        void* vals, void* idx, void* stream) {
+  if (bad_cosine(q, corpus, nq, n, k, d) || d > kMaxRowBytes / 2) return kErrBadArg;
+  return launch_cosine<true>(q, corpus, row_scale, valid, nq, n, d, k, part, zero, vals, idx,
+                             stream);
 }
 
 // Kernel c: the radix select over nb rows of n scores; `part` and `zero` as
-// cs_scratch_entries(nb, n, k, 0, 1, 0 / 1) give them.
+// cs_scratch_entries(nb, n, k, 0, 0 / 1) give them, `zero` zeroed.
 int cs_scores_topk(const void* scores, const void* slot_meta, const void* boost_kid, int nb,
                    int n, int k, int dead_slot, void* part, void* zero, void* vals, void* idx,
                    void* stream) {

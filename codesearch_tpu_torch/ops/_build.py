@@ -34,9 +34,8 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 # argtypes of every entry point: pointers and the stream as c_void_p, ints
 # as c_int (ctypes would otherwise pass a pointer as a 32-bit int)
 _SIGNATURES = {
-    "cs_cosine_topk_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "cs_cosine_topk_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                            _P, _P, _P],
+    "cs_cosine_topk_bf16": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "cs_cosine_topk_int8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "cs_scores_topk": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "cs_attention_full": [_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P],
     "cs_attention_flash": [_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P],
@@ -130,8 +129,10 @@ def bind(path: Path) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.cs_error_string.argtypes = [ctypes.c_int]
     lib.cs_error_string.restype = ctypes.c_char_p
-    lib.cs_scratch_entries.argtypes = [_I, _I, _I, _I, _I, _I]
+    lib.cs_scratch_entries.argtypes = [_I, _I, _I, _I, _I]
     lib.cs_scratch_entries.restype = ctypes.c_longlong
+    lib.cs_cosine_ctas_per_sm.argtypes = [_I, _I]
+    lib.cs_cosine_ctas_per_sm.restype = ctypes.c_int
     lib.cs_topk_init.argtypes = []
     lib.cs_topk_init.restype = ctypes.c_int
     check(lib, lib.cs_topk_init(), "cs_topk_init")

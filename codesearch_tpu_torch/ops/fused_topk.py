@@ -14,9 +14,9 @@ Three wrappers, each beside its plain PyTorch version:
 Ties keep the lowest index. A tensor on the CPU takes the plain version; a
 tensor on a CUDA device launches the hand-written kernels of
 ``csrc/topk_kernels.cu`` or raises, for any 1 <= k <= N. Kernel c is an
-exact radix select over the boosted scores (five launches); a and b sort
-per-block partial lists, then merge them (``merge_topk``, k up to
-``MERGE_MAX_K``) or run the radix select over them (larger k).
+exact radix select over the boosted scores (five launches). a and b are a
+tensor-core score pass over the streamed corpus (which also rounds or
+quantizes the f32 queries), then the same radix select over its score rows.
 ``launch_counts`` counts wrapper calls that launched their kernels.
 """
 
@@ -26,12 +26,7 @@ import torch
 
 from . import _build
 
-# Largest k that a and b merge with merge_topk (its shared-memory buffer);
-# above it they take the radix select over their partial lists.
-MERGE_MAX_K = 4096
 NEG_INF = -3.0e38       # score of an invalid row / dead slot (Pallas' sentinel)
-_ROWS_COSINE = 512      # corpus rows per CTA in the cosine kernels' first pass
-PASS2 = ("auto", "merge", "select")   # a's and b's second pass (see _select)
 
 launch_counts = {
     "fused_cosine_topk": 0,
@@ -49,9 +44,11 @@ def quantize_rows_int8(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 quantization -> (q [N, d] int8, scale [N] f32):
     scale = max(absmax, 1e-12) / 127, round half to even, clip to +-127.
     Used for the corpus and, as the Pallas wrapper does before its kernel,
-    for the queries."""
+    for the queries (kernel b repeats it on the card). The scale divides by a
+    tensor: CUDA divides a tensor by a Python scalar as a product with the
+    scalar's f32 reciprocal, one ulp off the division now and then."""
     c = rows.float()
-    scale = torch.clamp(c.abs().amax(dim=1), min=1e-12) / 127.0
+    scale = torch.clamp(c.abs().amax(dim=1), min=1e-12) / c.new_tensor(127.0)
     q = torch.clamp(torch.round(c / scale[:, None]), -127, 127).to(torch.int8)
     return q, scale
 
@@ -119,23 +116,13 @@ def _check_k(k: int, n: int) -> None:
         raise ValueError(f"k={k} outside [1, {n}], the selectable columns")
 
 
-def _select(k: int, pass2: str) -> bool:
-    """Whether a's or b's second pass is the radix select: above
-    ``MERGE_MAX_K`` always, below it only if asked (``pass2="select"``, to
-    time the two on the same partial lists)."""
-    if pass2 not in PASS2:
-        raise ValueError(f"pass2={pass2!r}: expected one of {PASS2}")
-    if pass2 == "merge" and k > MERGE_MAX_K:
-        raise ValueError(f"merge_topk takes k <= {MERGE_MAX_K}, got {k}")
-    return pass2 == "select" or k > MERGE_MAX_K
-
-
-def _outputs(lib, nq: int, n: int, k: int, rows: int, select: bool, device):
-    """Scratch (the select's histograms zeroed) and the outputs."""
-    part = torch.empty(lib.cs_scratch_entries(nq, n, k, rows, int(select), 0),
+def _outputs(lib, nq: int, n: int, k: int, score_rows: bool, device):
+    """Scratch and the outputs. c's select histograms are zeroed here; a's
+    and b's score pass zeroes them itself."""
+    part = torch.empty(lib.cs_scratch_entries(nq, n, k, int(score_rows), 0),
                        dtype=torch.int64, device=device)
-    zero = torch.zeros(lib.cs_scratch_entries(nq, n, k, rows, int(select), 1),
-                       dtype=torch.int64, device=device)
+    zero = (torch.empty if score_rows else torch.zeros)(
+        lib.cs_scratch_entries(nq, n, k, int(score_rows), 1), dtype=torch.int64, device=device)
     vals = torch.empty((nq, k), dtype=torch.float32, device=device)
     idx = torch.empty((nq, k), dtype=torch.int32, device=device)
     return part, zero, vals, idx
@@ -145,54 +132,49 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def fused_cosine_topk(queries, corpus, valid, k: int, pass2: str = "auto"):
-    """Exact bf16 cosine top-k -> (scores [Q, k] f32, indices [Q, k] i32).
-    ``pass2`` picks the kernel's second pass on CUDA (see ``_select``)."""
+def fused_cosine_topk(queries, corpus, valid, k: int):
+    """Exact bf16 cosine top-k -> (scores [Q, k] f32, indices [Q, k] i32)."""
     if _on_cpu(queries, corpus, valid):
         return fused_cosine_topk_plain(queries, corpus, valid, k)
     n, d = corpus.shape
-    q = queries.to(torch.bfloat16).contiguous()
+    # the kernel rounds f32 queries to bf16; other types round here first
+    q = queries if queries.dtype == torch.float32 else queries.to(torch.bfloat16).float()
+    q = q.contiguous()
     nq = q.shape[0]
-    _require(q, "queries", torch.bfloat16, (nq, d))
+    _require(q, "queries", torch.float32, (nq, d))
     _require(corpus, "corpus", torch.bfloat16, (n, d))
     _require(valid, "valid", torch.bool, (n,))
     _check_k(k, n)
-    select = _select(k, pass2)
     with torch.cuda.device(corpus.device):
         lib = _build.load()
-        part, zero, vals, idx = _outputs(lib, nq, n, k, _ROWS_COSINE, select, corpus.device)
+        part, zero, vals, idx = _outputs(lib, nq, n, k, True, corpus.device)
         rc = lib.cs_cosine_topk_bf16(
-            q.data_ptr(), corpus.data_ptr(), valid.data_ptr(), nq, n, d, k,
-            _ROWS_COSINE, int(select), part.data_ptr(), zero.data_ptr(), vals.data_ptr(),
-            idx.data_ptr(), _stream())
+            q.data_ptr(), corpus.data_ptr(), valid.data_ptr(), nq, n, d, k, part.data_ptr(),
+            zero.data_ptr(), vals.data_ptr(), idx.data_ptr(), _stream())
         _build.check(lib, rc, "fused_cosine_topk")
     launch_counts["fused_cosine_topk"] += 1
     return vals, idx
 
 
-def fused_cosine_topk_int8(queries, corpus_q, row_scale, valid, k: int, pass2: str = "auto"):
-    """Exact int8 cosine top-k -> (scores [Q, k] f32, indices [Q, k] i32).
-    ``pass2`` as for ``fused_cosine_topk``."""
+def fused_cosine_topk_int8(queries, corpus_q, row_scale, valid, k: int):
+    """Exact int8 cosine top-k -> (scores [Q, k] f32, indices [Q, k] i32);
+    the kernel quantizes the f32 queries as ``quantize_rows_int8`` does."""
     if _on_cpu(queries, corpus_q, row_scale, valid):
         return fused_cosine_topk_int8_plain(queries, corpus_q, row_scale, valid, k)
     n, d = corpus_q.shape
-    q_i8, q_scale = quantize_rows_int8(queries)
-    nq = q_i8.shape[0]
-    _require(q_i8, "queries", torch.int8, (nq, d))
-    _require(q_scale, "q_scale", torch.float32, (nq,))
+    q = queries.float().contiguous()
+    nq = q.shape[0]
+    _require(q, "queries", torch.float32, (nq, d))
     _require(corpus_q, "corpus_q", torch.int8, (n, d))
     _require(row_scale, "row_scale", torch.float32, (n,))
     _require(valid, "valid", torch.bool, (n,))
     _check_k(k, n)
-    select = _select(k, pass2)
     with torch.cuda.device(corpus_q.device):
         lib = _build.load()
-        part, zero, vals, idx = _outputs(lib, nq, n, k, _ROWS_COSINE, select, corpus_q.device)
+        part, zero, vals, idx = _outputs(lib, nq, n, k, True, corpus_q.device)
         rc = lib.cs_cosine_topk_int8(
-            q_i8.data_ptr(), q_scale.data_ptr(), corpus_q.data_ptr(),
-            row_scale.data_ptr(), valid.data_ptr(), nq, n, d, k, _ROWS_COSINE,
-            int(select), part.data_ptr(), zero.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-            _stream())
+            q.data_ptr(), corpus_q.data_ptr(), row_scale.data_ptr(), valid.data_ptr(), nq, n,
+            d, k, part.data_ptr(), zero.data_ptr(), vals.data_ptr(), idx.data_ptr(), _stream())
         _build.check(lib, rc, "fused_cosine_topk_int8")
     launch_counts["fused_cosine_topk_int8"] += 1
     return vals, idx
@@ -210,7 +192,7 @@ def fused_scores_topk(scores, slot_meta, boost_kid, k: int, dead_slot: int):
     _check_k(k, n)
     with torch.cuda.device(scores.device):
         lib = _build.load()
-        part, zero, vals, idx = _outputs(lib, nb, n, k, 0, True, scores.device)
+        part, zero, vals, idx = _outputs(lib, nb, n, k, False, scores.device)
         rc = lib.cs_scores_topk(
             scores.data_ptr(), slot_meta.data_ptr(), boost_kid.data_ptr(), nb,
             n, k, dead_slot, part.data_ptr(), zero.data_ptr(), vals.data_ptr(),
