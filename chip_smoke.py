@@ -57,7 +57,21 @@ when any phase fails:
    encoder's strided views and at its sequence bound, with refused
    inputs raising; then the ablation entry point
    (``codesearch_tpu_torch.examples.ablate_head_packing``) at its defaults,
-   its launches of f counted on their own, and its table logged.
+   its launches of f counted on their own, and its table logged;
+9. serving on the card, over phase 5's and phase 7's indexes: a wave of 64
+   hybrid queries (several hundred variant rows) through ``search_many``
+   against the same 64 ``search`` calls (the same hits; kernel a launched
+   once, c on the dense leg; a subset held to the CPU session), with wall
+   times (medians of 3), device time, idle share and peak memory; a wave of
+   16 on the int8 corpus (b once) and of 16 bge-small queries (one encoder
+   forward: d once a layer; each vector list an exact top-k of the wave's own
+   query vectors);
+   the MCP server (``serve_stdio``: initialize, tools/list, a pipelined group
+   of 8 ``semantic_search`` calls in one wave, find_references,
+   index_status) and the HTTP server (``make_server`` on port 0: 16
+   concurrent hybrid POSTs in fewer waves than requests, a ``queries[]``
+   body of 64, a ``mode=vector`` request), their answers held to
+   ``ranked_chunks``.
 
 Beside each kernel's time (CUDA events around one call) it prints its
 bound on the card (the larger of the bytes it must move over 3.35 TB/s and
@@ -107,6 +121,7 @@ BERT_MODEL = "bge-small"
 BERT_LAYERS = 12
 BERT_BATCH = 256        # bge-small's device batch when indexing (embed/service.py)
 EMBED_COS_MIN = 0.999   # GPU against CPU query embeddings (bf16 activations)
+WAVE_COS_MIN = 1 - 1e-5  # a wave's query embeddings against per-query ones, same device
 _TOPK_CU = "codesearch_tpu_torch/csrc/topk_kernels.cu"
 _ATTN_CU = "codesearch_tpu_torch/csrc/attention_kernels.cu"
 SOURCES = {
@@ -906,6 +921,20 @@ def timed_pass(session, queries, mode: str) -> float:
     return (time.perf_counter() - t) * 1000
 
 
+def device_kernel_time(prof) -> tuple[float, dict]:
+    """(device ms of a profiled run, the six longest kernels' ms). Only the
+    device's own events count: under kineto a CPU op's row carries the time
+    of the kernels it launched too, so summing every row would count that
+    time twice (torch's own table sums the device rows alone)."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return (sum(e.self_device_time_total for e in events) / 1000,
+            {e.key[:60]: e.self_device_time_total / 1000 for e in top})
+
+
 def device_busy_share(session, queries, mode: str) -> dict:
     """The device's idle share of a pass over uncached queries: device
     kernel time from a profiled pass, against the wall time of an
@@ -916,13 +945,11 @@ def device_busy_share(session, queries, mode: str) -> dict:
     wall_ms = timed_pass(session, queries, mode)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_wall_ms = timed_pass(session, queries, mode)
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1000
+    busy_ms, top = device_kernel_time(prof)
     check(busy_ms > 0, "the profiler saw no device time")
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     return {"queries": len(queries), "wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms,
             "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1000 for e in top}}
+            "top_device_ms": top}
 
 
 def synthetic_session(work: Path, n_rows: int, device: str, cpu_check: bool) -> dict:
@@ -1201,6 +1228,469 @@ def bert_synthetic(work: Path, n_rows: int, device: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: serving on the card (waves, MCP, HTTP)
+# ---------------------------------------------------------------------------
+
+# 28 bare identifiers (six or seven variants each), 4 identifier queries
+# with the high-df term (its score plane: the dense leg, kernel c) and 32
+# plain hybrid queries: a wave of several hundred variant rows
+WAVE_QUERIES = ([f"{v}_{o}" for v in VERBS[:7] for o in NOUNS[:4]]
+                + [f"shared_registry {v}" for v in VERBS[:4]]
+                + [f"{v} the {o} and return it" for v in VERBS[7:15] for o in NOUNS[4:8]])
+WARM_QUERIES = ["warm the cache", "shared_registry warm"]
+SERVE_LIMIT = 10
+WAVE_REPEATS = 3        # the wall times are medians of 3 (the host clock spreads)
+
+
+def _sync(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_reset(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_mb(device: str):
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**20 if device == "cuda" else "not measured"
+
+
+def wave_kernel_check(session, plans) -> tuple[dict, object]:
+    """The wave's vector top-k kernel (a on a bf16 corpus, b on int8) held
+    against its plain version at the wave's own shape: every query's variant
+    rows stacked as ``search_many`` stacks them into [Qtot, d] query vectors,
+    k the wave's deepest fetch. b must agree bit for bit, a as in phase 3
+    (SCORE_TOL, no index mismatch away from near-ties). Returns the check's
+    numbers and the stacked query vectors."""
+    import numpy as np
+    import torch
+
+    from codesearch_tpu_torch.models.hash_embedder import embed_features
+    from codesearch_tpu_torch.ops import fused_topk as ft
+
+    hashed = session.service.fused_kind() == "hash"
+    tmax = max(p["feats"][0].shape[1] for p in plans)
+    ids = np.zeros((sum(p["feats"][0].shape[0] for p in plans), tmax), np.int32)
+    aux = np.zeros(ids.shape, np.float32 if hashed else np.int32)
+    row = 0
+    for p in plans:
+        f_ids, f_aux = p["feats"]
+        ids[row:row + len(f_ids), :f_ids.shape[1]] = f_ids
+        aux[row:row + len(f_ids), :f_ids.shape[1]] = f_aux
+        row += len(f_ids)
+    ids_t = torch.from_numpy(ids).to(session.device)
+    aux_t = torch.from_numpy(aux).to(session.device)
+    backend = session.service.backend
+    vecs = (embed_features(backend.model.table, ids_t, aux_t) if hashed
+            else backend.encoder.encode(ids_t, aux_t))
+    kind, mat, scale, valid = session.store._device
+    k = min(max(p["fetch"] for p in plans), session.store._n_valid())
+    out = {"q": int(vecs.shape[0]), "k": k}
+    if kind == "int8":
+        got = ft.fused_cosine_topk_int8(vecs, mat, scale, valid, k)
+        ref = ft.fused_cosine_topk_int8_plain(vecs, mat, scale, valid, k)
+        same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        out.update(kernel="fused_cosine_topk_int8", values_and_indices_equal=same)
+        log(f"kernel b at the wave's shape: {json.dumps(out)}")
+        check(same, f"fused_cosine_topk_int8 disagrees at the wave's Q={out['q']} k={k}")
+    else:
+        got = ft.fused_cosine_topk(vecs, mat, valid, k)
+        ref = ft.fused_cosine_topk_plain(vecs, mat, valid, k)
+        plain_scores = torch.where(valid[None, :],
+                                   vecs.to(torch.bfloat16).float() @ mat.float().T, ft.NEG_INF)
+        err, row_err, mism = compare_cosine(
+            got, ref, ft.fused_cosine_topk_plain(vecs, mat, valid, k + 1), plain_scores)
+        del plain_scores
+        out.update(kernel="fused_cosine_topk", max_abs_err=err, max_row_err=row_err,
+                   index_mismatches_off_near_ties=mism)
+        log(f"kernel a at the wave's shape: {json.dumps(out)}")
+        check(err <= SCORE_TOL and row_err <= SCORE_TOL and mism == 0,
+              f"fused_cosine_topk disagrees at the wave's Q={out['q']} k={k}")
+    return out, vecs
+
+
+def wave_against_sequential(session, queries, tag: str) -> dict:
+    """Waves of ``queries`` through ``search_many`` against the same
+    queries as sequential ``search`` calls on the same warm session (wall
+    times: medians of ``WAVE_REPEATS`` passes each, uncached): every query
+    must rank the same hits. The first wave runs with the counts set to 0
+    just before it and read just after, under ``PlainCalls``; then a
+    profiled wave gives the device time (idle share against the median
+    wave's wall time) and peak memory, and the wave's vector top-k kernel
+    is held against its plain version at the wave's shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from codesearch_tpu_torch.search import SearchOptions
+
+    device = session.device.type
+    opts = SearchOptions(limit=SERVE_LIMIT)
+    session.search_many(WARM_QUERIES, opts)     # corpus upload, first launches
+    plans = [session._prep_query(q, opts) for q in queries]
+    rows = sum(p["feats"][0].shape[0] for p in plans)
+    seq_runs, wave_runs = [], []
+    for _ in range(WAVE_REPEATS):
+        session._resp_cache.clear()
+        _sync(device)
+        t = time.perf_counter()
+        seq = [[h.chunk_id for h in session.search(q, opts).hits] for q in queries]
+        _sync(device)
+        seq_runs.append((time.perf_counter() - t) * 1000)
+    _peak_reset(device)
+    for rep in range(WAVE_REPEATS):
+        session._resp_cache.clear()
+        with PlainCalls() as plain:
+            reset_counts()
+            _sync(device)
+            t = time.perf_counter()
+            wave = session.search_many(queries, opts)
+            _sync(device)
+            wave_runs.append((time.perf_counter() - t) * 1000)
+            if rep == 0:    # the counted window: the first wave alone
+                counts, plain_calls = launch_counts(), dict(plain.calls)
+    peak = _peak_mb(device)
+    seq_ms, wave_ms = statistics.median(seq_runs), statistics.median(wave_runs)
+    session._resp_cache.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        session.search_many(queries, opts)
+        _sync(device)
+    busy_ms, top = device_kernel_time(prof)
+    got = [[h.chunk_id for h in r.hits] for r in wave]
+    same = sum(a == b for a, b in zip(got, seq))
+    out = {"queries": len(queries), "variant_rows": rows, "wave_ms": wave_ms,
+           "sequential_ms": seq_ms, "speedup": seq_ms / wave_ms, "wave_runs_ms": wave_runs,
+           "sequential_runs_ms": seq_runs,
+           "device_busy_ms": busy_ms if device == "cuda" else "not measured",
+           "idle_share": 1 - busy_ms / wave_ms if device == "cuda" else "not measured",
+           "peak_memory_mb": peak, "top_device_ms": top, "same_hits_as_search": same}
+    log(f"{tag} wave ({device}): {json.dumps(out)}; launches {counts}; plain versions called "
+        f"{plain_calls}")
+    check(device != "cuda" or busy_ms > 0, "the profiler saw no device time in the wave")
+    check(device != "cuda" or not plain_calls, f"plain versions ran on the card: {plain_calls}")
+    check(all(len(r.hits) == SERVE_LIMIT for r in wave), f"a {tag} wave query lacks hits")
+    # the CPU's bf16 GEMMs round by row count, so a CPU rehearsal's
+    # bge-small wave vectors move by about 1e-3 and random-init near-ties
+    # reorder; the card's do not, and there every wave is held exactly
+    exact = device == "cuda" or session.service.fused_kind() == "hash"
+    check(not exact or same == len(queries),
+          f"{tag}: {len(queries) - same} wave queries rank other hits than their own search calls")
+    out["kernel_at_wave_shape"], vecs = wave_kernel_check(session, plans)
+    return {"counts": counts, "hits": got, "plans": plans, "vecs": vecs, **out}
+
+
+def _summary(res: dict) -> dict:
+    return {k: v for k, v in res.items() if k not in ("hits", "plans", "vecs")}
+
+
+def serving_waves(work: Path, device: str) -> dict:
+    """Waves on the GPU session: 64 hash queries (bf16; kernel a once, c on
+    the dense leg), a subset held to the CPU session; 16 on the int8 corpus
+    (kernel b once); 16 bge-small queries (one encoder forward: kernel d once
+    a layer). Each wave's a or b is held against its plain version at the
+    wave's shape."""
+    import torch
+
+    from codesearch_tpu_torch.search import SearchOptions, SearchSession
+
+    db = work / "synthetic-db"
+    launches, out = {}, {}
+    on_card = device == "cuda"
+    set_int8(db, False)
+    session = SearchSession(db, device=device)
+    res = wave_against_sequential(session, WAVE_QUERIES, "code-hash-384 bf16")
+    launches["wave"] = res.pop("counts")
+    check(not on_card or launches["wave"]["fused_cosine_topk"] == 1,
+          f"the wave launched kernel a {launches['wave']['fused_cosine_topk']} times, not once")
+    check(not on_card or launches["wave"]["fused_scores_topk"] >= 1,
+          "the wave's dense BM25 leg skipped c")
+    check(session.fts.plane_builds > 0, "no score plane served the wave's dense leg")
+    cpu = SearchSession(db, device="cpu")
+    subset = [0, 1, 28, 33]
+    cpu_hits = [[h.chunk_id for h in cpu.search(WAVE_QUERIES[i],
+                                                 SearchOptions(limit=SERVE_LIMIT)).hits]
+                for i in subset]
+    check(cpu_hits == [res["hits"][i] for i in subset],
+          "the GPU wave and the CPU session rank different hits")
+    out["hash_bf16"] = _summary(res)
+    del session, cpu, res
+    if on_card:
+        torch.cuda.empty_cache()
+
+    set_int8(db, True)
+    session = SearchSession(db, device=device)
+    res = wave_against_sequential(session, WAVE_QUERIES[::4], "code-hash-384 int8")
+    launches["int8_wave"] = res.pop("counts")
+    check(session.store._device[0] == "int8", "the int8 session's corpus is not int8")
+    check(not on_card or launches["int8_wave"]["fused_cosine_topk_int8"] == 1,
+          "the int8 wave did not launch kernel b once")
+    out["hash_int8"] = _summary(res)
+    set_int8(db, False)
+    del session, res
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # bge-small: the wave's encoder forward runs its GEMMs at another row
+    # count than one query's, so its query vectors are also held to the
+    # per-query ones (cosine >= WAVE_COS_MIN)
+    bdb = work / "bert-synthetic-db"
+    set_int8(bdb, False)
+    session = SearchSession(bdb, device=device)
+    res = wave_against_sequential(session, WAVE_QUERIES[::4], f"{BERT_MODEL} bf16")
+    counts = launches["bert_wave"] = res.pop("counts")
+    check(not on_card or (counts["attention_full"] == BERT_LAYERS
+                          and counts["fused_cosine_topk"] == 1),
+          f"the {BERT_MODEL} wave launched d {counts['attention_full']} times (want "
+          f"{BERT_LAYERS}) and a {counts['fused_cosine_topk']} times (want 1)")
+    enc = session.service.backend.encoder
+    row, cos_min = 0, 1.0
+    for p in res["plans"]:
+        f_ids, f_mask = p["feats"]
+        own = enc.encode(torch.from_numpy(f_ids).to(device), torch.from_numpy(f_mask).to(device))
+        cos_min = min(cos_min, float((own * res["vecs"][row:row + len(f_ids)]).sum(-1).min()))
+        row += len(f_ids)
+    out["bert_bf16"] = {**_summary(res), "min_embedding_cosine": cos_min}
+    log(f"{BERT_MODEL} bf16 wave's query vectors against per-query ones: min cosine {cos_min} "
+        f"(limit {WAVE_COS_MIN})")
+    check(not on_card or cos_min >= WAVE_COS_MIN,
+          f"wave and per-query embeddings differ (cosine {cos_min})")
+    del session, res
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"launches": launches, **out}
+
+
+def _serving_project(work: Path) -> Path:
+    """A project directory whose ``.codesearch.db`` is the synthetic hash
+    index, so the servers' own discovery finds it."""
+    project = work / "serving-project"
+    project.mkdir(exist_ok=True)
+    link = project / ".codesearch.db"
+    if not link.exists():
+        link.symlink_to(work / "synthetic-db")
+    return project
+
+
+def _ranked_payload(stores, service, meta, query: str, limit: int, fmt) -> list:
+    from codesearch_tpu_torch.server.readplane import ranked_chunks
+
+    with stores.lock:
+        return [fmt(m, s) for s, _c, m in ranked_chunks(stores, service, meta, query, limit)]
+
+
+def serving_mcp(work: Path, device: str) -> dict:
+    """MCP in process on the card: ``serve_stdio`` over the synthetic index,
+    a pipelined group of 8 ``semantic_search`` calls (one wave), and
+    ``find_references`` and ``index_status``; every answer equals
+    ``ranked_chunks`` for its query."""
+    import io
+
+    from codesearch_tpu_torch.embed import EmbeddingService
+    from codesearch_tpu_torch.index import read_metadata
+    from codesearch_tpu_torch.index.manager import SharedStores
+    from codesearch_tpu_torch.server.mcp import CodesearchService, serve_stdio
+
+    db = _serving_project(work) / ".codesearch.db"
+    service = EmbeddingService("code-hash-384", device=device)
+    stores, lock = SharedStores.new_or_readonly(db, service.dims, device=device)
+    try:
+        svc = CodesearchService(db.parent, db, stores, service, None)
+        queries = WAVE_QUERIES[3::8]
+        reqs = [{"jsonrpc": "2.0", "id": 1, "method": "initialize", "params": {}},
+                {"jsonrpc": "2.0", "id": 2, "method": "tools/list"}]
+        reqs += [{"jsonrpc": "2.0", "id": 10 + i, "method": "tools/call",
+                  "params": {"name": "semantic_search",
+                             "arguments": {"query": q, "limit": SERVE_LIMIT}}}
+                 for i, q in enumerate(queries)]
+        reqs += [{"jsonrpc": "2.0", "id": 30, "method": "tools/call",
+                  "params": {"name": "find_references",
+                             "arguments": {"symbol": "shared_registry"}}},
+                 {"jsonrpc": "2.0", "id": 31, "method": "tools/call",
+                  "params": {"name": "index_status", "arguments": {}}}]
+        # first launches and the corpus upload outside the counted window
+        svc.semantic_search({"query": WARM_QUERIES[0]})
+        stdout = io.StringIO()
+        with PlainCalls() as plain:
+            reset_counts()
+            _sync(device)
+            t = time.perf_counter()
+            serve_stdio(svc, stdin=io.StringIO("\n".join(json.dumps(r) for r in reqs) + "\n"),
+                        stdout=stdout)
+            _sync(device)
+            ms = (time.perf_counter() - t) * 1000
+            counts = launch_counts()
+        frames = {f["id"]: f for f in map(json.loads, stdout.getvalue().splitlines())}
+        check(sorted(frames) == sorted(r["id"] for r in reqs), f"MCP answered {sorted(frames)}")
+        check("GPU-accelerated" in frames[1]["result"]["instructions"],
+              "the MCP instructions do not name the GPU")
+        check(len(frames[2]["result"]["tools"]) == 4, "tools/list lacks tools")
+        meta = read_metadata(db)
+
+        def fmt(m, s):
+            item = {"path": m.path, "start_line": m.start_line + 1, "end_line": m.end_line,
+                    "kind": m.kind, "score": round(s, 4)}
+            if m.signature:
+                item["signature"] = m.signature
+            return item
+
+        for i, q in enumerate(queries):
+            got = json.loads(frames[10 + i]["result"]["content"][0]["text"])["results"]
+            want = _ranked_payload(stores, service, meta, q, SERVE_LIMIT, fmt)
+            check(got == want and len(got) == SERVE_LIMIT,
+                  f"MCP semantic_search {q!r} differs from ranked_chunks")
+        refs = json.loads(frames[30]["result"]["content"][0]["text"])["references"]
+        status = json.loads(frames[31]["result"]["content"][0]["text"])
+        check(refs and status["total_chunks"] == len(stores.store), f"MCP status {status}")
+    finally:
+        if lock is not None:
+            lock.release()
+    out = {"requests": len(reqs), "semantic_search_calls": len(queries), "round_trip_ms": ms}
+    log(f"MCP ({device}): {json.dumps(out)}; launches {counts}; plain versions called "
+        f"{dict(plain.calls)}")
+    check(device != "cuda" or not plain.calls,
+          f"plain versions ran on the card: {dict(plain.calls)}")
+    check(device != "cuda" or counts["fused_cosine_topk"] == 1,
+          f"the pipelined group launched kernel a {counts['fused_cosine_topk']} times, not once")
+    return {"launches": {"mcp": counts}, "mcp": out}
+
+
+def serving_http(work: Path, device: str) -> dict:
+    """The HTTP server on the card (``make_server``, port 0): 16 concurrent
+    hybrid POSTs coalesce into fewer waves than requests, one ``queries[]``
+    body of 64, one ``mode=vector`` request (kernel a at Q=1); the hybrid
+    answers equal ``ranked_chunks``. The burst's wall time includes the
+    clients' threads (in this process); ``took_ms`` is each request's time
+    in its handler."""
+    import http.client
+    import threading
+    import urllib.request
+
+    from codesearch_tpu_torch.index import read_metadata
+    from codesearch_tpu_torch.server.http import SNIPPET_CHARS, make_server
+
+    project = _serving_project(work)
+    httpd, state = make_server(project, port=0, initial_index=False, device=device)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    port = httpd.server_address[1]
+    base = f"http://127.0.0.1:{port}"
+
+    def post(payload):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            conn.request("POST", "/search", json.dumps(payload).encode(),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            check(resp.status == 200, f"POST {payload} answered {resp.status}")
+            return json.loads(resp.read())
+        finally:
+            conn.close()
+
+    try:
+        # the initial refresh and the warmup (first launches) end first
+        deadline = time.time() + 300
+        while state.manager is not None and state.manager.status != "ready" \
+                and time.time() < deadline:
+            time.sleep(0.1)
+        for t in threading.enumerate():
+            if t.name == "search-warmup":
+                t.join(timeout=300)
+        check(state.manager is None or state.manager.status == "ready",
+              f"the server's index manager is {state.manager.status}")
+        meta = read_metadata(state.db)
+
+        def fmt(m, s):
+            return {"path": m.path, "start_line": m.start_line + 1, "end_line": m.end_line,
+                    "kind": m.kind, "score": round(s, 4), "snippet": m.content[:SNIPPET_CHARS]}
+
+        queries = WAVE_QUERIES[1::4]
+        want = {q: _ranked_payload(state.stores, state.service, meta, q, SERVE_LIMIT, fmt)
+                for q in queries}
+        post({"query": WARM_QUERIES[1], "limit": SERVE_LIMIT, "mode": "hybrid"})
+        waves0 = json.loads(urllib.request.urlopen(base + "/status").read())["batch_waves"]
+        results, errors = [None] * len(queries), []
+        barrier = threading.Barrier(len(queries))
+
+        def worker(i):
+            try:
+                barrier.wait(timeout=60)
+                results[i] = post({"query": queries[i], "limit": SERVE_LIMIT,
+                                   "mode": "hybrid"})
+            except Exception as e:  # reported below
+                errors.append(e)
+
+        with PlainCalls() as plain:
+            reset_counts()
+            threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(queries))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            burst_ms = (time.perf_counter() - t0) * 1000
+            status = json.loads(urllib.request.urlopen(base + "/status").read())
+            waves = status["batch_waves"] - waves0
+            check(not errors and not any(t.is_alive() for t in threads),
+                  f"concurrent POSTs failed: {errors[:3]}")
+            for q, got in zip(queries, results):
+                check(got["results"] == want[q], f"HTTP hybrid {q!r} differs from ranked_chunks")
+            took = sorted(r["took_ms"] for r in results)
+            t0 = time.perf_counter()
+            batch = post({"queries": WAVE_QUERIES, "limit": SERVE_LIMIT, "mode": "hybrid"})
+            batch_ms = (time.perf_counter() - t0) * 1000
+            for item in batch["batch"][1::4]:
+                check(item["results"] == want[item["query"]],
+                      f"HTTP queries[] {item['query']!r} differs from ranked_chunks")
+            check(len(batch["batch"]) == len(WAVE_QUERIES)
+                  and all(len(b["results"]) == SERVE_LIMIT for b in batch["batch"]),
+                  "the queries[] answer lacks results")
+            batch_counts = launch_counts()
+            reset_counts()
+            t0 = time.perf_counter()
+            vec = post({"query": "validate the schema and return it", "limit": SERVE_LIMIT})
+            vector_ms = (time.perf_counter() - t0) * 1000
+            vec_counts = launch_counts()
+        check(device != "cuda" or not plain.calls,
+              f"plain versions ran on the card: {dict(plain.calls)}")
+        check(waves < len(queries), f"{len(queries)} concurrent requests took {waves} waves")
+        check(vec["mode"] == "vector" and len(vec["results"]) == SERVE_LIMIT
+              and all(-1.0 <= r["score"] <= 1.0 for r in vec["results"]),
+              f"the vector request answered {vec['results'][:2]}")
+        check(device != "cuda" or vec_counts["fused_cosine_topk"] == 1,
+              "the vector request did not launch a once")
+        out = {"concurrent_requests": len(queries), "batch_waves": waves, "burst_ms": burst_ms,
+               "server_took_ms_p50": statistics.median(took), "server_took_ms_max": took[-1],
+               "queries_body": len(WAVE_QUERIES), "queries_body_ms": batch_ms,
+               "vector_ms": vector_ms}
+        log(f"HTTP ({device}): {json.dumps(out)}; launches (burst + queries[]) {batch_counts}, "
+            f"vector request {vec_counts}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+        if state.manager is not None:
+            state.manager.stop()
+        if state._writer_lock is not None:
+            state._writer_lock.release()
+    total = {k: batch_counts[k] + vec_counts[k] for k in batch_counts}
+    return {"launches": {"http": total}, "http": out}
+
+
+def serving(work: Path, device: str) -> dict:
+    res = serving_waves(work, device)
+    mcp = serving_mcp(work, device)
+    http = serving_http(work, device)
+    res["launches"].update(mcp.pop("launches"))
+    res["launches"].update(http.pop("launches"))
+    return {**res, **mcp, **http}
+
+
 def nvidia_smi_line() -> str:
     try:
         proc = subprocess.run(
@@ -1265,14 +1755,17 @@ def main() -> int:
         bert = bert_synthetic(work, N_ROWS, "cuda")
         timing.update(packed_checks("cuda"))
         ablation = packed_ablation(work)
+        served = serving(work, "cuda")
         kernels = []
         # launches: phase 7's counted paths, bge-small's index, its bf16 and
         # int8 queries (the "search" route) and the direct S=2048 call of the
-        # encoder attention that only e serves (the "direct" route)
+        # encoder attention that only e serves (the "direct" route), and
+        # phase 9's (the waves, MCP, HTTP), each counted on its own
+        paths = {**bert["launches"], **served["launches"]}
         for name, via in (("fused_cosine_topk", "search"), ("fused_cosine_topk_int8", "search"),
                           ("fused_scores_topk", "search"), ("attention_full", "search"),
                           ("attention_flash", "direct")):
-            by_path = {path: c[name] for path, c in bert["launches"].items() if c[name]}
+            by_path = {path: c[name] for path, c in paths.items() if c[name]}
             kernels.append({"name": name, "route": "cuda", "via": via, "source": SOURCES[name],
                             "replaces": REPLACES[name], "launches": sum(by_path.values()),
                             "launches_by_path": by_path, **timing[name]})

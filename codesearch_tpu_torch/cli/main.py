@@ -1,6 +1,7 @@
 """Command line of the port: ``python -m codesearch_tpu_torch.cli`` (or
-``codesearch-torch``). It takes the JAX CLI's arguments; ``index`` and
-``search`` run on torch, every other subcommand exits 2 as not yet ported.
+``codesearch-torch``). It takes the JAX CLI's arguments; ``index``,
+``search``, ``mcp`` (the MCP stdio server) and ``serve`` (the HTTP server)
+run on torch, every other subcommand exits 2 as not yet ported.
 ``--platform cpu`` runs on the CPU; otherwise the first CUDA device."""
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from ..utils import constants
 from ..utils.logger import init_logger
 from ..utils.output import error_print, info_print, result_print, set_quiet
 
-PORTED = ("index", "search")
+PORTED = ("index", "search", "mcp", "serve")
 
 
 def _install_sigint() -> None:
@@ -196,6 +197,16 @@ def main(argv: list[str] | None = None) -> int:
     try:
         if args.command == "search":
             return _cmd_search(args, device)
+        if args.command == "mcp":
+            from ..server.mcp import run_mcp_server
+
+            return run_mcp_server(Path(args.path), create_index=not args.no_create_index,
+                                  device=device)
+        if args.command == "serve":
+            from ..server.http import serve
+
+            return serve(Path(args.path), host=args.host, port=args.port,
+                         initial_index=not args.no_create_index, device=device)
         return _cmd_index(args, device)
     except KeyboardInterrupt:
         return 130

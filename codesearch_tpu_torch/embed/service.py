@@ -4,17 +4,19 @@ text preparation, batching, device inference, caching.
 The bulk-index path of the reference EmbeddingService (src/embed/mod.rs:17-292):
 persistent-cache lookup by chunk hash → device inference for misses →
 write-back, order-preserving merge. Queries are embedded inside the search
-pipeline's one device call (``featurize_queries``). The backend that turns texts into vectors runs
-on ``device``: the hash embedder for hash models, the BERT encoder
-(``models/encoder.py``, attention kernels d and e on CUDA) for BERT-family
-models with absolute positions, tokenized on the host into power-of-two
-token buckets. Rotary and ALiBi models raise ``NotImplementedError``
+pipeline's one device call (``featurize_queries``); ``embed_query`` embeds
+one on its own, through a query LRU, for the HTTP server's vector mode. The
+backend that turns texts into vectors runs on ``device``: the hash embedder
+for hash models, the BERT encoder (``models/encoder.py``, attention kernels
+d and e on CUDA) for BERT-family models with absolute positions, tokenized
+on the host into power-of-two token buckets. Rotary and ALiBi models raise ``NotImplementedError``
 rather than substituting another model.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
@@ -33,6 +35,7 @@ from .cache import (
     LruBytesCache,
     PersistentEmbeddingCache,
     default_memory_cache,
+    default_query_cache,
 )
 
 log = get_logger("embed")
@@ -53,6 +56,12 @@ def _default_batch_size(dims: int) -> int:
     if dims <= 768:
         return 128
     return 64
+
+
+@dataclass
+class EmbeddedChunk:
+    chunk: Chunk
+    embedding: np.ndarray
 
 
 def prepare_text(chunk: Chunk) -> str:
@@ -222,15 +231,17 @@ class EmbeddingService:
         if spec is None:
             raise ValueError(f"unknown model: {model!r}")
         self.spec = spec
+        self.device = resolve_device(device)
         table_path = None
         if spec.kind == "hash":
             if db_path is not None and (Path(db_path) / "hash_table.npz").exists():
                 table_path = Path(db_path) / "hash_table.npz"
-            self.backend = _HashBackend(spec, table_path=table_path, device=device)
+            self.backend = _HashBackend(spec, table_path=table_path, device=self.device)
         else:
-            self.backend = _BertBackend(spec, get_global_models_cache_dir(), device=device)
+            self.backend = _BertBackend(spec, get_global_models_cache_dir(), device=self.device)
         self.trained_table = table_path is not None
         self.mem_cache: LruBytesCache = default_memory_cache()
+        self.query_cache: LruBytesCache = default_query_cache()
         self.persistent: PersistentEmbeddingCache | None = None
         if use_persistent_cache:
             # the port's vectors come from its own arithmetic: keep them in a
@@ -264,6 +275,13 @@ class EmbeddingService:
         return None
 
     # -- chunks ---------------------------------------------------------------
+
+    def embed_chunks(self, chunks: list[Chunk]) -> list[EmbeddedChunk]:
+        """Cache-aware embed of a few chunks, in order (embed/mod.rs:86-161):
+        the index manager's single-file re-index. Rows as
+        ``embed_chunks_matrix`` gives them."""
+        mat = self.embed_chunks_matrix(chunks)
+        return [EmbeddedChunk(chunk=c, embedding=mat[i]) for i, c in enumerate(chunks)]
 
     def embed_chunks_matrix_async(self, chunks: list[Chunk]):
         """Async bulk-index fast path: cache lookups + host featurize +
@@ -336,3 +354,16 @@ class EmbeddingService:
         of N per-row stacks (np.stack over 8k row views measured 1.7 s of
         a 15.7 s 65k-chunk index run on the one host core)."""
         return self.embed_chunks_matrix_async(chunks)()
+
+    # -- queries ----------------------------------------------------------------
+
+    def embed_query(self, query: str) -> np.ndarray:
+        """One query's vector [dims] f32 (the model's query prefix applied),
+        through the query LRU."""
+        key = "q:" + query
+        v = self.query_cache.get(key)
+        if v is not None:
+            return v
+        vec = self.backend.embed([self.spec.query_prefix + query])[0]
+        self.query_cache.put(key, vec)
+        return vec

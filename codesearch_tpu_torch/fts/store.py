@@ -224,6 +224,72 @@ def _pow2(n: int) -> int:
     return 1 << max(0, (int(n) - 1).bit_length())
 
 
+def stack_query_args(args_list: list) -> tuple:
+    """Stack B per-query ``device_query_args`` tuples (same store, same
+    device epoch) into the batched call's shapes: interval tables padded to
+    the batch-max chunk count, the batch axis padded to ``max(4, pow2(B))``
+    fully-masked rows (clen=0, kid=-1; the dense leg then splits the batch
+    into ``ops/bm25._MERGE_SUB``-row sub-batches above 8), k/kpre/imax taken
+    as batch maxima (each query's own bound is at most the max, and kpre >=
+    k + dead-since-sync still holds for the largest k). Callers trim each
+    query's results back to its own k on the host.
+
+    Raises ValueError when the tuples span different device epochs: a
+    rebuild of the resident postings or a score-plane build between preps
+    (each replaces the tensor object) would make the batched offsets or
+    plane weights index the wrong layout; callers re-prep or fall back to
+    per-query calls."""
+    dev = args_list[0][0]
+    planes = None
+    for a in args_list:
+        if a[0][0] is not dev[0]:
+            raise ValueError("device epoch changed between query preps")
+        if a[9] is not None:
+            if planes is None:
+                planes = a[9]
+            elif planes is not a[9]:
+                raise ValueError("plane epoch changed between query preps")
+    cmax = max(a[1].shape[0] for a in args_list)
+    bpad = max(4, _pow2(len(args_list)))
+    cs = np.zeros((bpad, cmax), np.int32)
+    cl = np.zeros((bpad, cmax), np.int32)
+    ci = np.zeros((bpad, cmax), np.float32)
+    kid = np.full(bpad, -1, np.int32)
+    pw = None
+    if planes is not None:
+        pw = np.zeros((bpad, planes.shape[0]), np.float32)
+    for row, a in enumerate(args_list):
+        _, cs_a, cl_a, ci_a, kid_a = a[:5]
+        m = cs_a.shape[0]
+        cs[row, :m] = cs_a
+        cl[row, :m] = cl_a
+        ci[row, :m] = ci_a
+        kid[row] = kid_a
+        if pw is not None and a[8] is not None:
+            pw[row] = a[8]
+    k = max(a[5] for a in args_list)
+    kpre = max(max(a[6] for a in args_list), k)
+    imax = max(a[7] for a in args_list)
+    return dev, cs, cl, ci, kid, k, kpre, imax, pw, planes
+
+
+def stack_wave(fts, plans: list, args_list: list):
+    """(per-query args, stacked args) for a wave's BM25 legs, ``plans``
+    being each query's ``device_query_args`` arguments. When the epoch moved
+    between preps (a cold wave's plane builds each replace the buffer, or a
+    rebuild of the resident postings) the preps run once more, the builds
+    cached now; None when the epoch moves again or a leg leaves the device,
+    and the caller then runs the queries one by one."""
+    try:
+        return args_list, stack_query_args(args_list)
+    except ValueError:
+        args_list = [fts.device_query_args(*p) for p in plans]
+        if any(a is None for a in args_list):
+            return None
+        try:
+            return args_list, stack_query_args(args_list)
+        except ValueError:
+            return None
 
 
 _TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.float32): torch.float32}

@@ -14,6 +14,7 @@ with index/mod.rs:35-268.
 
 from __future__ import annotations
 
+import contextlib
 import datetime as _dt
 import json
 import os
@@ -35,6 +36,7 @@ from ..fts import FtsStore
 from ..utils.constants import (
     DB_DIR_NAME,
     EMBEDDER_VERSION,
+    FILE_META_DB_NAME,
     FTS_DIR_NAME,
     METADATA_FILE_NAME,
     is_shutdown_requested,
@@ -45,7 +47,8 @@ from ..vectordb import ChunkMetadata, VectorStore
 from .db_discovery import find_best_database, global_db_path, register_global_db
 from .file_meta import FileMetaStore, normalize_path
 
-__all__ = ["IndexOptions", "IndexStats", "index", "read_metadata", "write_metadata"]
+__all__ = ["IndexOptions", "IndexStats", "index", "invalidate_for_embedder_version",
+           "read_metadata", "write_metadata"]
 
 
 FTS_COMMIT_EVERY = 1000  # chunks between FTS commits (index/mod.rs:751)
@@ -200,10 +203,27 @@ def write_metadata(db_path: Path, service: EmbeddingService, stats: IndexStats) 
     os.replace(tmp, p)
 
 
+def invalidate_for_embedder_version(db_path: Path, service: EmbeddingService,
+                                    stores: tuple[VectorStore, FtsStore]) -> None:
+    """Featurizer-version change against LIVE stores (the servers' refresh
+    path, where deleting the directory would pull files out from under open
+    handles): clear both stores and the file manifest so the next refresh
+    re-embeds everything, and stamp fresh metadata."""
+    store, fts = stores
+    store.clear()
+    fts.clear()
+    with contextlib.suppress(OSError):
+        (Path(db_path) / FILE_META_DB_NAME).unlink()
+    write_metadata(db_path, service, IndexStats(db_path=Path(db_path), int8=store.int8))
+
+
 def index(path: str | Path = ".", options: IndexOptions | None = None,
-          device=None) -> IndexStats:
-    """Full or incremental index of a repository; stores open from the
-    resolved database path on ``device``."""
+          device=None, service: EmbeddingService | None = None,
+          stores: tuple[VectorStore, FtsStore] | None = None) -> IndexStats:
+    """Full or incremental index of a repository on ``device``. Pass
+    ``service`` and ``stores`` to refresh a server's live stores in place
+    (manager.rs:394-611; the stores' device wins over ``device``); otherwise
+    the stores open from the resolved database path."""
     options = options or IndexOptions()
     t0 = time.time()
     project = Path(path).resolve()
@@ -213,24 +233,34 @@ def index(path: str | Path = ".", options: IndexOptions | None = None,
     if options.dry_run:
         raise NotImplementedError("index --dry-run is not ported yet (ROADMAP.md Queue 1)")
 
-    if options.force and db_path.exists():
+    if options.force and db_path.exists() and stores is None:
         info_print(f"force rebuild: deleting {db_path}")
         shutil.rmtree(db_path, ignore_errors=True)
     meta = read_metadata(db_path)
     model_name = meta.get("model", options.model) if not options.force else options.model
-    service = EmbeddingService(model_name, db_path=db_path, device=device)
+    if stores is not None:
+        device = stores[0].device
+    if service is None or service.model_name != model_name:
+        service = EmbeddingService(model_name, db_path=db_path, device=device)
     if meta and meta.get("embedder_version", 1) != EMBEDDER_VERSION:
         info_print(f"embedder version changed (v{meta.get('embedder_version', 1)} "
                    f"→ v{EMBEDDER_VERSION}): full rebuild")
-        shutil.rmtree(db_path, ignore_errors=True)
+        if stores is None:
+            shutil.rmtree(db_path, ignore_errors=True)
+        else:
+            invalidate_for_embedder_version(db_path, service, stores)
         meta = {}
 
     db_path.mkdir(parents=True, exist_ok=True)
     if db_path.parent == root:
         ensure_db_ignored(root)
-    stats.int8 = options.int8 or bool(meta.get("int8", False))
-    store = VectorStore(db_path, dims=service.dims, int8=stats.int8, device=device)
-    fts = FtsStore(db_path / FTS_DIR_NAME, device=device)
+    if stores is not None:
+        store, fts = stores
+        stats.int8 = store.int8
+    else:
+        stats.int8 = options.int8 or bool(meta.get("int8", False))
+        store = VectorStore(db_path, dims=service.dims, int8=stats.int8, device=device)
+        fts = FtsStore(db_path / FTS_DIR_NAME, device=device)
     file_meta = FileMetaStore.load_or_create(db_path, service.model_name)
 
     # ---- walk + incremental diff ----------------------------------------

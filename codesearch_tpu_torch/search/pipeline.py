@@ -7,8 +7,9 @@ call: variant embedding + exact vector top-k (+ resident BM25 top-k in
 hybrid mode), whose result arrays are read back together → best-score-per-
 chunk dedup → early termination to vector-only on a confident top-5 →
 hybrid: BM25 + per-identifier exact match + adaptive 3-way RRF → path
-filter → primary-language boost ×1.2 → kind boost ×1.15. Batched waves
-(``search_many``) and neural reranking are not ported yet and raise.
+filter → primary-language boost ×1.2 → kind boost ×1.15. ``search_many``
+answers a wave of queries from one device call. Neural reranking is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 
 from ..embed import EmbeddingService
 from ..fts import FtsStore
+from ..fts.store import stack_wave
 from ..index.db_discovery import resolve_database_with_message
 from ..index.pipeline import read_metadata
 from ..models.hash_embedder import batch_features
@@ -62,7 +64,8 @@ class ResponseCache:
     """Small LRU for fused search responses, keyed on query/options plus
     store mutation counters. Values are stored and returned as copies deep
     enough that caller mutation (rescoring hits, annotating timings,
-    appending to context lists) cannot poison the cache."""
+    appending to context lists) cannot poison the cache. Shared by
+    SearchSession and the MCP service (whose values are result dicts)."""
 
     def __init__(self, max_entries: int = RESPONSE_CACHE_MAX):
         self._d: OrderedDict = OrderedDict()
@@ -71,7 +74,9 @@ class ResponseCache:
         self.misses = 0
 
     @staticmethod
-    def _copy(value: SearchResponse) -> SearchResponse:
+    def _copy(value):
+        if isinstance(value, dict):   # MCP result dicts
+            return {**value, "results": [{**r} for r in value.get("results", [])]}
         return dataclasses.replace(
             value,
             hits=[dataclasses.replace(h, context=list(h.context)) for h in value.hits],
@@ -451,11 +456,136 @@ class SearchSession:
             "bm": bm_args, "fused": fused, "variants": variants,
         }
 
-    def search_many(self, queries, options=None):
-        raise NotImplementedError(f"batched search (search_many) is {_NOT_PORTED}")
+    def search_many(self, queries: list[str],
+                    options: SearchOptions | None = None) -> list[SearchResponse]:
+        """Batched serving path: the whole WAVE of queries rides ONE device
+        call — every query's variants concatenated into one [Qtot, T] embed
+        + top-k batch (one launch of kernel a or b), every query's BM25
+        interval table stacked into one [B, C] batched call — then one
+        readback for the wave. Host exact-identifier scans run while the
+        device works. Each query's results are trimmed to its own retrieval
+        depth, so the answers equal per-query ``search``. The rows are not
+        padded: the port compiles nothing per shape."""
+        return dispatch_with_degrade(
+            self.fts, lambda: self._search_many_attempt(queries, options),
+            "batched search")
 
-    def _search_many_waves(self, queries, options=None):
-        raise NotImplementedError(f"batched search (search_many) is {_NOT_PORTED}")
+    def _cached_or_prep(self, queries, options):
+        """(responses with the cached ones filled in, per-query plans or None
+        where cached)."""
+        out: list[SearchResponse | None] = [None] * len(queries)
+        pending: list[dict | None] = []
+        for qi, query in enumerate(queries):
+            if not query or not query.strip():
+                raise SearchError("empty query")
+            key = self._cache_key(query, options)
+            cached = self._resp_cache.get(key)
+            if cached is not None:
+                cached.timings_ms["cached"] = True
+                out[qi] = cached
+                pending.append(None)
+                continue
+            st = self._prep_query(query, options)
+            st["key"] = key
+            pending.append(st)
+        return out, pending
+
+    def _exact_scans(self, plans) -> None:
+        """The host exact-identifier scans of the hybrid plans, run while
+        the device computes."""
+        for st in plans:
+            if st["bm"] is None or not st["identifiers"]:
+                continue
+            kind = st["intent"].value if st["intent"] else None
+            exact = []
+            for ident in st["identifiers"]:
+                exact.extend(self.fts.search_exact(ident, kind=kind, limit=st["fetch"]))
+            st["exact"] = exact
+
+    def _respond(self, st, options, vector_ranked, fused_fts, t_all) -> SearchResponse:
+        resp = self._finish(
+            st["query"], options, st["identifiers"], st["intent"], st["vk"], st["fk"],
+            st["fetch"], vector_ranked, fused_fts, st.get("exact"), {}, t_all)
+        self._resp_cache.put(st["key"], resp)
+        return resp
+
+    def _search_many_attempt(self, queries, options=None) -> list[SearchResponse]:
+        options = options or SearchOptions()
+        if options.rerank:
+            return [self.search(q, options) for q in queries]
+        t_all = time.time()
+        out, pending = self._cached_or_prep(queries, options)
+        live = [st for st in pending if st is not None]
+        if not live:
+            return out  # type: ignore[return-value]
+
+        # ---- assemble ONE device call for the whole wave -------------------
+        fused = self.service.fused_kind()
+        tmax = max(st["feats"][0].shape[1] for st in live)
+        qtot = sum(st["feats"][0].shape[0] for st in live)
+        ids_all = np.zeros((qtot, tmax), np.int32)
+        aux_all = np.zeros((qtot, tmax), np.float32 if fused == "hash" else np.int32)
+        row = 0
+        for st in live:
+            f_ids, f_aux = st["feats"]
+            v, t = f_ids.shape
+            ids_all[row:row + v, :t] = f_ids
+            aux_all[row:row + v, :t] = f_aux
+            st["rows"] = (row, row + v)
+            row += v
+        kvmax = max(st["fetch"] for st in live)
+        hyb = [st for st in live if st["bm"] is not None]
+        for hi, st in enumerate(hyb):
+            st["hi"] = hi
+        backend = self.service.backend
+        dev_out = raw_all = None
+        if hyb:
+            stacked = stack_wave(
+                self.fts, [(st["query"], st["intent"].value if st["intent"] else None,
+                            st["fetch"]) for st in hyb], [st["bm"] for st in hyb])
+            if stacked is None:
+                return self._search_many_waves(queries, options)
+            for st, bm in zip(hyb, stacked[0]):
+                st["bm"] = bm
+            bm_batch = stacked[1]
+            if fused == "hash":
+                dev_out = self.store.hybrid_search_featurized_many(
+                    backend.model.table, ids_all, aux_all, kvmax, bm_batch)
+            else:
+                dev_out = self.store.hybrid_search_encoded_many(
+                    backend.encoder, ids_all, aux_all, kvmax, bm_batch)
+            if dev_out is None:   # the store emptied under us
+                return self._search_many_waves(queries, options)
+        elif fused == "hash":
+            raw_all = self.store.search_featurized_auto(
+                backend.model, ids_all, aux_all, kvmax, raw=True)
+        else:
+            raw_all = self.store.search_encoded(
+                backend.encoder, ids_all, aux_all, kvmax, raw=True)
+        self._exact_scans(hyb)
+        bv = bi = None
+        if dev_out is not None:
+            vv, vi, bv, bi = to_host(*dev_out)
+            raw_all = self.store.rows_to_ids(vv, vi)
+        cids_all, scores_all = raw_all
+        for qi, st in enumerate(pending):
+            if st is None:
+                continue
+            rs, re_ = st["rows"]
+            fq = st["fetch"]
+            # each query's own depth: candidates are sorted descending, so the
+            # [:fq] prefix IS that query's top-fq
+            vector_ranked = self._dedup_raw((cids_all[rs:re_, :fq], scores_all[rs:re_, :fq]), fq)
+            fused_fts = None
+            if st["bm"] is not None:
+                fused_fts = self.fts.results_from_device(bv[st["hi"]], bi[st["hi"]], fq)
+            out[qi] = self._respond(st, options, vector_ranked, fused_fts, t_all)
+        return out  # type: ignore[return-value]
+
+    def _search_many_waves(self, queries, options=None) -> list[SearchResponse]:
+        """Query by query: the fallback when the one-call wave cannot run
+        (the epoch moved twice, the store emptied)."""
+        return [self.search(q, options) for q in queries]
 
 
 def search(query: str, path: str | Path = ".", options: SearchOptions | None = None,

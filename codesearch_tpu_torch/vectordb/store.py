@@ -58,10 +58,14 @@ import torch
 from ..ops.query_pipeline import (
     bert_embed_hybrid_search,
     bert_embed_hybrid_search_int8,
+    bert_embed_hybrid_search_many,
+    bert_embed_hybrid_search_many_int8,
     bert_embed_search,
     bert_embed_search_int8,
     hash_embed_hybrid_search,
     hash_embed_hybrid_search_int8,
+    hash_embed_hybrid_search_many,
+    hash_embed_hybrid_search_many_int8,
     hash_embed_search,
     hash_embed_search_int8,
 )
@@ -96,9 +100,6 @@ EXTRAS_MAX = 1 << 18
 ROWIDX_DTYPE = np.dtype(
     [("cid", "<i8"), ("off", "<i8"), ("len", "<i4"), ("pid", "<i4")]
 )
-
-_NOT_PORTED = "batched (wave) search paths are not ported yet (ROADMAP.md Queue 1)"
-
 
 @dataclass
 class ChunkMetadata:
@@ -1229,8 +1230,21 @@ class VectorStore:
         return self._hybrid(bert_embed_hybrid_search, bert_embed_hybrid_search_int8,
                             encoder, ids, mask, limit, bm_args, raw, defer)
 
-    def _hybrid(self, fn_bf16, fn_int8, model, ids, aux, limit, bm_args, raw, defer):
+    def _bm_device(self, bm_args):
+        """A ``device_query_args`` (or ``stack_query_args``) tuple as the
+        device call's BM25 arguments: the resident tensors, the interval
+        tables and boost kind(s) on ``device``, (k, kpre, imax), and the
+        plane weights and buffer as keywords when the dense leg runs."""
         fts_dev, cs, cl, ci, kid, kb, kbpre, imax, b_pw, b_planes = bm_args
+        kid = int(kid) if np.ndim(kid) == 0 else self._dev_tensor(kid)
+        bm = (fts_dev[0], fts_dev[1], fts_dev[2], self._dev_tensor(cs),
+              self._dev_tensor(cl), self._dev_tensor(ci), kid, kb, kbpre, imax)
+        dense = {}
+        if b_planes is not None:
+            dense = {"pw": self._dev_tensor(b_pw), "planes": b_planes}
+        return bm, dense
+
+    def _hybrid(self, fn_bf16, fn_int8, model, ids, aux, limit, bm_args, raw, defer):
         with self._lock:
             n_valid = self._n_valid()
             if n_valid == 0:
@@ -1239,18 +1253,7 @@ class VectorStore:
                     return (np.zeros((nq, 0), np.float32), np.zeros((nq, 0), np.int32),
                             np.zeros(0, np.float32), np.zeros(0, np.int32))
                 return self._empty(ids.shape[0], raw), None, None
-            dev = self._ensure_device()
-            kv = min(limit, max(1, n_valid))
-            ids_t, aux_t = self._dev_tensor(ids), self._dev_tensor(aux)
-            bm = (fts_dev[0], fts_dev[1], fts_dev[2], self._dev_tensor(cs),
-                  self._dev_tensor(cl), self._dev_tensor(ci), int(kid), kb, kbpre, imax)
-            dense = {}
-            if b_planes is not None:
-                dense = {"pw": self._dev_tensor(b_pw), "planes": b_planes}
-            if dev[0] == "int8":
-                out = fn_int8(model, ids_t, aux_t, dev[1], dev[2], dev[3], kv, *bm, **dense)
-            else:
-                out = fn_bf16(model, ids_t, aux_t, dev[1], dev[3], kv, *bm, **dense)
+            out = self._fused(fn_bf16, fn_int8, model, ids, aux, limit, bm_args, n_valid)
         if defer:
             return out
         vv, vi, bv, bi = to_host(*out)
@@ -1258,11 +1261,41 @@ class VectorStore:
             return self.rows_to_ids(vv, vi), bv, bi
         return self._materialize(vv, vi), bv, bi
 
-    def hybrid_search_featurized_many(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED)
+    def _fused(self, fn_bf16, fn_int8, model, ids, aux, limit, bm_args, n_valid):
+        """Launch one fused call on the device corpus; the caller holds the
+        lock and has checked that the store is not empty."""
+        dev = self._ensure_device()
+        kv = min(limit, max(1, n_valid))
+        ids_t, aux_t = self._dev_tensor(ids), self._dev_tensor(aux)
+        bm, dense = self._bm_device(bm_args)
+        if dev[0] == "int8":
+            return fn_int8(model, ids_t, aux_t, dev[1], dev[2], dev[3], kv, *bm, **dense)
+        return fn_bf16(model, ids_t, aux_t, dev[1], dev[3], kv, *bm, **dense)
 
-    def hybrid_search_encoded_many(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_PORTED)
+    def _many(self, fn_bf16, fn_int8, model, ids, aux, limit, bm_args):
+        with self._lock:
+            n_valid = self._n_valid()
+            if n_valid == 0:
+                return None
+            return self._fused(fn_bf16, fn_int8, model, ids, aux, limit, bm_args, n_valid)
+
+    def hybrid_search_featurized_many(self, table, ids: np.ndarray, weights: np.ndarray,
+                                      limit: int, bm_args):
+        """A wave (``search_many``): every query's variants [Qtot, T] plus B
+        stacked BM25 interval tables (``fts.store.stack_query_args``) in one
+        call. Returns the four result tensors on the device, not read back
+        (vv [Qtot, kv], vi, bv [Bpad, kb], bi), so the caller overlaps host
+        work with the device; None when the store is empty."""
+        return self._many(hash_embed_hybrid_search_many, hash_embed_hybrid_search_many_int8,
+                          table, ids, weights, limit, bm_args)
+
+    def hybrid_search_encoded_many(self, encoder, ids: np.ndarray, mask: np.ndarray,
+                                   limit: int, bm_args):
+        """The BERT-family wave: one encoder forward over every query's
+        variants + the batched top-k, the contract of
+        ``hybrid_search_featurized_many``."""
+        return self._many(bert_embed_hybrid_search_many, bert_embed_hybrid_search_many_int8,
+                          encoder, ids, mask, limit, bm_args)
 
     def search(self, query_vec: np.ndarray, limit: int) -> list[SearchResult]:
         return self.search_batch(query_vec, limit)[0]
@@ -1277,6 +1310,11 @@ class VectorStore:
             if row is None:
                 return None
             return self._fetch_meta(row)
+
+    def all_ids(self) -> list[int]:
+        """Live chunk ids (orphan sweeps)."""
+        with self._lock:
+            return self._cids.view()[self._valid.view()].tolist()
 
     def iter_chunks(self):
         """Lazy (chunk_id, ChunkMetadata) iteration over live chunks,

@@ -33,7 +33,12 @@ ROOT = Path(__file__).resolve().parents[1]
 # so a new copy joins on purpose. Three copies differ on purpose and are not
 # listed: native/__init__.py (its library is cs_native_torch.so, not
 # cs_native.so), utils/__init__.py (it exports the port's device helpers)
-# and utils/device.py (torch devices in place of JAX platforms).
+# and utils/device.py (torch devices in place of JAX platforms). Four ported
+# serving modules differ on purpose too and are not listed: server/readplane.py
+# (the BertEncoder in place of params and cfg, one readback wait in place of
+# device_get, no pow2 row padding), server/mcp.py (the instructions name the
+# GPU; a device argument), server/http.py (a device argument) and
+# index/manager.py (the stores open on a device, int8 as the metadata says).
 VERBATIM = (
     "chunker/__init__.py", "chunker/dedup.py", "chunker/langspec.py", "chunker/lexer.py",
     "chunker/scanner.py", "chunker/semantic.py",
@@ -46,6 +51,7 @@ VERBATIM = (
     "embed/cache.py",
     "utils/growbuf.py", "utils/errors.py", "utils/output.py", "utils/hashing.py",
     "utils/constants.py", "utils/logger.py",
+    "watch/__init__.py", "watch/watcher.py", "server/warmup.py",
 )
 SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "codesearch_tpu").rglob("*")
                  if p.is_file() and p.suffix in (".py", ".cpp"))

@@ -258,7 +258,7 @@ def test_cli_index_and_search_json(tmp_repo, tmp_path):
 
     db = tmp_path / "db"
     assert main(["--platform", "cpu", "--quiet", "--store", str(db), "index", str(tmp_repo)]) == 0
-    assert main(["--platform", "cpu", "mcp"]) == 2
+    assert main(["--platform", "cpu", "stats"]) == 2     # not ported yet
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-m", "codesearch_tpu_torch.cli", "--platform", "cpu", "--store",

@@ -6,8 +6,10 @@
   ``find_spec``/``import_module``/``__import__`` of them by name.
 - A subprocess with ``codesearch_tpu_torch/`` copied alone into a temporary
   directory and a meta-path finder that refuses ``codesearch_tpu`` and
-  ``jax``: the CPU index -> search of code-hash-384 and of a tiny BERT, and
-  the CLI's ``--json`` search, with neither module loaded at the end.
+  ``jax``: the CPU index -> search of code-hash-384 and of a tiny BERT, the
+  CLI's ``--json`` search, a ``search_many`` wave and one MCP round trip
+  (initialize, a pipelined pair of ``semantic_search`` calls), with neither
+  module loaded at the end.
 """
 
 import ast
@@ -119,6 +121,28 @@ _ALONE_SCRIPT = textwrap.dedent("""
     assert rc == 0, rc
     hits = json.loads(buf.getvalue())["results"]
     assert hits and hits[0]["path"].endswith("main.py"), hits
+    wave = session.search_many(["parse the configuration file", "compute a content hash"],
+                               SearchOptions(limit=5))
+    assert [h.chunk_id for h in wave[0].hits] == [h.chunk_id for h in resp.hits]
+
+    from codesearch_tpu_torch.index.manager import SharedStores
+    from codesearch_tpu_torch.server.mcp import CodesearchService, serve_stdio
+
+    stores, lock = SharedStores.new_or_readonly(db / "hash", 384, device="cpu")
+    mcp = CodesearchService(Path(repo), db / "hash", stores, session.service, None)
+    calls = [{"jsonrpc": "2.0", "id": 1, "method": "initialize", "params": {}}] + [
+        {"jsonrpc": "2.0", "id": 2 + i, "method": "tools/call",
+         "params": {"name": "semantic_search", "arguments": {"query": q, "limit": 3}}}
+        for i, q in enumerate(["parse the configuration file", "compute a content hash"])]
+    out = io.StringIO()
+    serve_stdio(mcp, stdin=io.StringIO("\\n".join(json.dumps(c) for c in calls) + "\\n"),
+                stdout=out)
+    frames = [json.loads(line) for line in out.getvalue().splitlines()]
+    assert [f["id"] for f in frames] == [1, 2, 3], frames
+    assert "GPU-accelerated" in frames[0]["result"]["instructions"]
+    found = json.loads(frames[1]["result"]["content"][0]["text"])["results"]
+    assert found and found[0]["path"].endswith("main.py"), found
+    lock.release()
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "codesearch_tpu")]
     assert not loaded, loaded
     print("OK", stats.chunks_added, len(resp.hits), len(bresp.hits), len(hits))
