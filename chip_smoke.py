@@ -29,8 +29,10 @@ when any phase fails:
    S, the d/e route at its threshold, the encoder's layout (strided views of
    one fused QKV projection) at S in {64, 512}, with padded masks, masks with
    holes (zeros before a row's last valid key) and a fully masked row, d
-   timed on ragged and on full masks, and window, bias2d, requires_grad and
-   unsupported inputs raising;
+   timed on ragged and on full masks; window (ModernBERT's 128 at H=16,
+   Dh=64) and bias2d (ALiBi) taking the composed route, counted apart and
+   launching no kernel, equal to the CPU's ``reference_attention``; and
+   requires_grad and unsupported inputs raising;
 4. indexes the port's own ``codesearch_tpu_torch/`` sources with the port
    (code-hash-384) and searches that index through the port's CLI
    (``--json``);
@@ -71,7 +73,24 @@ when any phase fails:
    index_status) and the HTTP server (``make_server`` on port 0: 16
    concurrent hybrid POSTs in fewer waves than requests, a ``queries[]``
    body of 64, a ``mode=vector`` request), their answers held to
-   ``ranked_chunks``.
+   ``ranked_chunks``;
+10. the rest of the encoder family and neural reranking: kernel d timed at
+   nomic-v1.5's and ModernBERT's index batches (Dh=64); nomic-v1.5 as
+   registered (12 layers, 768, 12 heads of 64, random init from seed 0)
+   indexing 65,536 synthetic chunks and answering hybrid, vector and
+   identifier queries, held to a CPU session as phase 7 holds bge-small (d
+   at least once a layer of every batch and query); modernbert-large at
+   full width with its depth cut to 6 layers (global layers 0 and 3), a
+   forward of 256 chunks against the CPU's (d exactly twice and the
+   windowed route four times a forward), an 8,192-chunk index and hybrid
+   queries, and a local layer's composed attention timed against d at
+   B=256, S=128 and 512; ``search --rerank`` (8 queries, the default 100
+   candidates) on phase 5's index through a GPU and a CPU session with the
+   weights-free proxy, a cross-encoder checkpoint with absolute positions
+   (d six times a query) and an ALiBi one (the biased route six times, no
+   d), written by the script from seed 0. ``reference_attention`` may run
+   on the card only as the windowed and biased route, as often as that
+   route counts.
 
 Beside each kernel's time (CUDA events around one call) it prints its
 bound on the card (the larger of the bytes it must move over 3.35 TB/s and
@@ -141,7 +160,8 @@ REPLACES = {
     "attention_packed": "examples/ablate_head_packing.py:88",
 }
 # the kernels' plain versions: none may run on the card's main path (the
-# head-packing ablation computes reference_attention as its reference row)
+# head-packing ablation computes reference_attention as its reference row;
+# phase 10's windowed and ALiBi layers run it as their composed route)
 PLAIN_VERSIONS = {
     "codesearch_tpu_torch.ops.fused_topk": (
         "fused_cosine_topk_plain", "fused_cosine_topk_int8_plain", "fused_scores_topk_plain"),
@@ -188,6 +208,14 @@ def launch_counts() -> dict:
     from codesearch_tpu_torch.ops import packed_attention as pa
 
     return {**ft.launch_counts, **att.launch_counts, **pa.launch_counts}
+
+
+def route_counts() -> dict:
+    """``launch_counts()`` and the composed attention route's calls
+    (``composed_window``, ``composed_bias2d``)."""
+    from codesearch_tpu_torch.ops import attention as att
+
+    return {**launch_counts(), **{f"composed_{k}": v for k, v in att.composed_counts.items()}}
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -614,16 +642,12 @@ def attention_checks(device: str) -> dict:
         del q, k, v, mask, got, ref
         torch.cuda.empty_cache()
 
+    composed_checks(device)
     # what the kernels do not take raises on the card and launches nothing
     q, k, v, mask = attention_inputs(2, 12, 64, 32, seed=99, device=device)
     z48 = torch.zeros(2, 12, 64, 48, dtype=torch.bfloat16, device=device)
     before = dict(att.launch_counts)
     for what, call, exc in (
-            ("window", lambda: att.fused_encoder_attention(q, k, v, mask, window=128),
-             NotImplementedError),
-            ("bias2d", lambda: att.fused_encoder_attention(
-                q, k, v, mask, bias2d=torch.zeros(12, 64, 64, device=device)),
-             NotImplementedError),
             ("requires_grad", lambda: att.fused_encoder_attention(
                 q.clone().requires_grad_(True), k, v, mask), NotImplementedError),
             ("f32 inputs", lambda: att.attention_full(q.float(), k.float(), v.float(), mask),
@@ -639,6 +663,36 @@ def attention_checks(device: str) -> dict:
     for name in out:
         out[name]["max_abs_err"] = errs[name]
     return out
+
+
+def composed_checks(device: str) -> None:
+    """Windowed and ALiBi attention take the composed route on the card
+    (``reference_attention``, as JAX composes them in XLA on every backend):
+    ModernBERT's window of 128 at its heads (H=16, Dh=64, S=512) and an
+    ALiBi bias at bge-small's (H=12, Dh=32, S=256) each count once in
+    ``composed_counts``, launch no kernel and equal the CPU's
+    ``reference_attention`` on the same inputs within one bf16 step."""
+    import torch
+
+    from codesearch_tpu_torch.ops import attention as att
+
+    for what, (b, h, s, dh) in (("window", (4, 16, 512, 64)), ("bias2d", (4, 12, 256, 32))):
+        q, k, v, mask = attention_inputs(b, h, s, dh, seed=77, device=device)
+        kw = {"window": 128} if what == "window" else {"bias2d": att.alibi_bias(h, s, device)}
+        launches, composed = dict(att.launch_counts), dict(att.composed_counts)
+        got = att.fused_encoder_attention(q, k, v, mask, **kw)
+        torch.cuda.synchronize()
+        check(att.launch_counts == launches, f"attention with {what} launched a kernel")
+        check(att.composed_counts[what] == composed[what] + 1,
+              f"attention with {what} did not count its composed route")
+        cpu_kw = {"window": 128} if what == "window" else {"bias2d": kw["bias2d"].cpu()}
+        ref = att.reference_attention(q.cpu(), k.cpu(), v.cpu(), mask.cpu(), **cpu_kw)
+        err, share, ok = compare_attention(got.cpu(), ref)
+        log(f"attention with {what} on the card: the composed route, no kernel launched, "
+            f"max |out - CPU reference| {err} (tol {ATTN_ATOL} + {ATTN_RTOL}|ref|), share of "
+            f"outputs differing {share:.2e} (B={b} H={h} S={s} Dh={dh})")
+        check(ok and bool(torch.isfinite(got).all()),
+              f"attention with {what} on the card disagrees with the CPU reference")
 
 
 # ---------------------------------------------------------------------------
@@ -814,11 +868,30 @@ IDENT_QUERIES = ["shared_registry sync", "where is shared_registry used", "share
 DEEP_LIMIT = 500        # a --limit the GPU session once refused (above 409 hybrid)
 
 
+def synthetic_chunks(a: int, b: int) -> list:
+    """Chunks ``a`` to ``b`` of bench.py's synthetic corpus, with an
+    identifier in every third chunk."""
+    from codesearch_tpu_torch.embed import Chunk, ChunkKind
+
+    chunks = []
+    for i in range(a, b):
+        v, o = VERBS[i % 15], NOUNS[(i // 15) % 15]
+        extra = "    shared_registry.sync(arg)\n" if i % 3 == 0 else ""
+        body = (f"def {v}_{o}_{i}(arg):\n"
+                f'    """{v.capitalize()} the {o} and return the result."""\n'
+                f"{extra}    return arg.{o} + {i}\n")
+        g = i // 64
+        chunks.append(Chunk(content=body, start_line=0, end_line=3,
+                            kind=ChunkKind.FUNCTION, path=f"src/{NOUNS[g % 15]}/mod_{g}.py",
+                            signature=f"def {v}_{o}_{i}(arg)"))
+    return chunks
+
+
 def build_synthetic(db: Path, n_rows: int, device: str, model: str = "code-hash-384") -> dict:
     """bench.py's synthetic corpus through the port's write plane, with an
     identifier in every third chunk (df ~ n/3: above the 65,536 plane floor
     and below the 0.4 n stopword cap at n = 262,144)."""
-    from codesearch_tpu_torch.embed import Chunk, ChunkKind, EmbeddingService
+    from codesearch_tpu_torch.embed import EmbeddingService
     from codesearch_tpu_torch.fts import FtsStore
     from codesearch_tpu_torch.index import IndexStats, write_metadata
     from codesearch_tpu_torch.vectordb import ChunkMetadata, VectorStore
@@ -830,17 +903,7 @@ def build_synthetic(db: Path, n_rows: int, device: str, model: str = "code-hash-
     t_all = time.perf_counter()
     for a in range(0, n_rows, 8192):
         t = time.perf_counter()
-        chunks = []
-        for i in range(a, min(n_rows, a + 8192)):
-            v, o = VERBS[i % 15], NOUNS[(i // 15) % 15]
-            extra = "    shared_registry.sync(arg)\n" if i % 3 == 0 else ""
-            body = (f"def {v}_{o}_{i}(arg):\n"
-                    f'    """{v.capitalize()} the {o} and return the result."""\n'
-                    f"{extra}    return arg.{o} + {i}\n")
-            g = i // 64
-            chunks.append(Chunk(content=body, start_line=0, end_line=3,
-                                kind=ChunkKind.FUNCTION, path=f"src/{NOUNS[g % 15]}/mod_{g}.py",
-                                signature=f"def {v}_{o}_{i}(arg)"))
+        chunks = synthetic_chunks(a, min(n_rows, a + 8192))
         ph["gen"] += time.perf_counter() - t
         t = time.perf_counter()
         embs = svc.embed_chunks_matrix(chunks)
@@ -1058,7 +1121,7 @@ def check_exact_topk(cids, scores, ref_cids, ref_scores) -> tuple[float, int]:
     return err, int(((cids != ref_cids) & clear).sum())
 
 
-def gpu_against_cpu(gpu, cpu, queries) -> dict:
+def gpu_against_cpu(gpu, cpu, queries, label: str = BERT_MODEL) -> dict:
     """The GPU session held against a CPU session on the same index: the
     query-variant embeddings agree (cosine >= EMBED_COS_MIN) and each GPU
     vector list is an exact top-k of its own query vectors (kernel a against
@@ -1096,7 +1159,7 @@ def gpu_against_cpu(gpu, cpu, queries) -> dict:
     out = {"queries": len(queries), "min_embedding_cosine": cos_min,
            "max_embedding_abs_err": emb_err, "max_vector_score_err": score_err,
            "vector_id_mismatches_off_near_ties": mism, "hit_overlap_top10": overlaps}
-    log(f"GPU vs CPU session ({BERT_MODEL}): {json.dumps(out)}")
+    log(f"GPU vs CPU session ({label}): {json.dumps(out)}")
     check(cos_min >= EMBED_COS_MIN, f"GPU and CPU query embeddings differ (cosine {cos_min})")
     check(score_err <= SCORE_TOL and mism == 0,
           "a GPU vector list is not an exact top-k of its own query vectors")
@@ -1691,6 +1754,420 @@ def serving(work: Path, device: str) -> dict:
     return {**res, **mcp, **http}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: Nomic, ModernBERT and neural reranking
+# ---------------------------------------------------------------------------
+
+NOMIC_MODEL = "nomic-v1.5"
+NOMIC_ROWS = 65_536          # phase 5's corpus at a quarter of the rows
+MODERNBERT_MODEL = "modernbert-large"
+MODERNBERT_LAYERS = 6        # depth cut from 28: global layers 0 and 3, four local
+MODERNBERT_ROWS = 8_192
+MODERNBERT_CHECK_BATCH = 256
+RERANKER = "jina-reranker-v1-turbo-en"
+# GPU against CPU: final and pair scores, near-ties. Both forwards run bf16
+# activations, and the rounding of the CLS state moves a pair score by the
+# head's gain: at this checkpoint's (pooler and classifier at 1/sqrt(fan-in))
+# a run on an NVIDIA H100 80GB HBM3 at 700.00 W read up to 1.9e-3 (absolute)
+# and 2.2e-3 (ALiBi) against the CPU
+RERANK_TOL = 5e-3
+
+
+def nomic_synthetic(work: Path, n_rows: int, device: str) -> dict:
+    """nomic-v1.5 as registered (random init from seed 0, one init shared
+    by the GPU and the CPU session through the init cache): the synthetic
+    index, hybrid, vector and identifier queries, each path counted on its
+    own with no plain version called (d once a layer of every index batch
+    and every distinct query, a for every query, c for the identifiers'
+    dense leg), the idle share, and the GPU session against a CPU one."""
+    import torch
+
+    from codesearch_tpu_torch.embed.service import _default_batch_size
+    from codesearch_tpu_torch.models import MODELS
+    from codesearch_tpu_torch.ops import attention as att
+    from codesearch_tpu_torch.search import SearchSession
+
+    spec = MODELS[NOMIC_MODEL]
+    db = work / "nomic-synthetic-db"
+    out: dict = {"launches": {}}
+    t = time.perf_counter()
+    with PlainCalls() as plain:
+        reset_counts()
+        built = build_synthetic(db, n_rows, device, model=NOMIC_MODEL)
+        out["launches"]["nomic_index"] = launch_counts()
+        index_by_seq = dict(att.launches_by_seq)
+        warm = open_session(db, device)
+        session = warm.pop("session")
+        queries = {"hybrid": HYBRID_QUERIES, "vector": VECTOR_QUERIES,
+                   "identifier": IDENT_QUERIES}
+        reset_counts()
+        res = {qtype: run_queries(session, qs, "vector" if qtype == "vector" else "hybrid")
+               for qtype, qs in queries.items()}
+        counts = out["launches"]["nomic_search"] = launch_counts()
+        query_by_seq = dict(att.launches_by_seq)
+    log(f"{NOMIC_MODEL} synthetic index (init and index {time.perf_counter() - t:.2f} s): "
+        f"{n_rows} chunks in {built['seconds']:.2f} s ({built['chunks_per_s']:.1f} chunks/s, "
+        f"{built['tokens_per_s']:.0f} tokens/s, {built['padded_tokens_per_s']:.0f} padded "
+        f"tokens/s), phases {built['phases_s']}; attention launches by (kernel, S) while "
+        f"indexing: {index_by_seq}")
+    log(f"{NOMIC_MODEL} session open + first query {warm}")
+    for qtype, (times, _hits, stages) in res.items():
+        log(f"{NOMIC_MODEL} {qtype} queries: n={len(times)} p50 {statistics.median(times)} ms "
+            f"max {max(times)} ms; session stages p50 ms {stage_medians(stages)}")
+    log(f"{NOMIC_MODEL} launches by path: {out['launches']}; attention launches by (kernel, S) "
+        f"during the queries: {query_by_seq}; plain versions called: {dict(plain.calls)}")
+    out["index"] = built
+    out["p50_ms"] = {qtype: statistics.median(v[0]) for qtype, v in res.items()}
+    out["hybrid_stages_p50_ms"] = stage_medians(res["hybrid"][2])
+    if device == "cuda":
+        layers = spec.arch.layers
+        n_batches = -(-n_rows // _default_batch_size(spec.dims))
+        n_queries = sum(len(set(qs)) for qs in queries.values())
+        check(not plain.calls, f"plain versions ran on the card: {dict(plain.calls)}")
+        check(out["launches"]["nomic_index"]["attention_full"] >= layers * n_batches,
+              f"attention_full launched {out['launches']['nomic_index']['attention_full']} "
+              f"times while indexing {n_batches} batches")
+        check(counts["attention_full"] >= layers * n_queries,
+              f"attention_full launched {counts['attention_full']} times for {n_queries} queries")
+        check(counts["fused_cosine_topk"] >= n_queries,
+              f"fused_cosine_topk launched {counts['fused_cosine_topk']} times")
+        check(counts["fused_scores_topk"] >= len(set(IDENT_QUERIES)),
+              f"fused_scores_topk launched {counts['fused_scores_topk']} times")
+        out["hybrid_profile"] = device_busy_share(session, HYBRID_QUERIES, "hybrid")
+        log(f"{NOMIC_MODEL} hybrid profiled pass: {json.dumps(out['hybrid_profile'])}")
+    cpu = SearchSession(db, device="cpu")
+    out["gpu_vs_cpu"] = gpu_against_cpu(
+        session, cpu, [(q, "hybrid") for q in HYBRID_QUERIES[:3] + IDENT_QUERIES[:2]]
+        + [(q, "vector") for q in VECTOR_QUERIES[:2]], label=NOMIC_MODEL)
+    del cpu, session
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def composed_against_kernel_d(device: str) -> dict:
+    """A ModernBERT local layer's composed windowed attention (window 128,
+    H=16, Dh=64, B=256, ragged masks) at S=128 and 512 against kernel d on
+    the same inputs without a window: CUDA events (median of 5), device ms
+    (a replayed CUDA graph), the [B, H, S, S] f32 scores' size and the
+    route's peak memory."""
+    import torch
+
+    from codesearch_tpu_torch.examples.ablate_head_packing import cuda_ms
+    from codesearch_tpu_torch.ops import attention as att
+
+    out = {}
+    for s in (128, 512):
+        q, k, v, mask = attention_inputs(256, 16, s, 64, seed=s, device=device)
+
+        def composed():
+            return att.fused_encoder_attention(q, k, v, mask, window=128)
+
+        def kernel():
+            return att.attention_full(q, k, v, mask)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        composed()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        row = {"composed_ms": cuda_ms(composed, reps=5), "d_ms": cuda_ms(kernel, reps=5),
+               "composed_device_ms": device_ms(composed, calls=3),
+               "d_device_ms": device_ms(kernel, calls=3),
+               "scores_mb": 256 * 16 * s * s * 4 / 2**20, "composed_peak_mb": peak,
+               "d_bound": attention_bound(q, mask)}
+        log(f"ModernBERT local layer attention B=256 H=16 S={s} Dh=64 (ragged masks): composed "
+            f"window=128 {row['composed_ms']} ms (device {row['composed_device_ms']}), kernel d "
+            f"without a window {row['d_ms']} ms (device {row['d_device_ms']}); scores "
+            f"{row['scores_mb']:.0f} MB, the composed route's peak {peak:.0f} MB")
+        out[s] = row
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def modernbert_synthetic(work: Path, device: str, n_rows: int, batch: int) -> dict:
+    """modernbert-large at full width, depth cut to ``MODERNBERT_LAYERS``
+    (the registry's entry is swapped for the phase): a batch of ``batch``
+    chunks through the GPU encoder against the CPU forward (cosine per row,
+    d exactly once a global layer and the windowed route once a local layer
+    a forward, ``reference_attention`` only for the latter), then an index
+    of ``n_rows`` chunks and hybrid queries with the same counts per
+    forward."""
+    import dataclasses
+
+    import torch
+
+    from codesearch_tpu_torch.embed import EmbeddingService
+    from codesearch_tpu_torch.embed.service import _default_batch_size, prepare_text
+    from codesearch_tpu_torch.models import encoder as enc
+    from codesearch_tpu_torch.models import registry
+
+    spec = registry.MODELS[MODERNBERT_MODEL]
+    cfg = dataclasses.replace(spec.arch, layers=MODERNBERT_LAYERS)
+    n_global = sum(1 for i in range(cfg.layers) if i % cfg.global_every == 0)
+    n_local = cfg.layers - n_global
+    out: dict = {"launches": {}, "layers": cfg.layers, "global_layers": n_global}
+    registry.MODELS[MODERNBERT_MODEL] = dataclasses.replace(spec, arch=cfg)
+    try:
+        t = time.perf_counter()
+        svc = EmbeddingService(MODERNBERT_MODEL, use_persistent_cache=False, device=device)
+        out["init_s"] = time.perf_counter() - t
+        texts = [prepare_text(c) for c in synthetic_chunks(0, batch)]
+        ids, mask = svc.backend.featurize_queries(texts)
+        with PlainCalls() as plain:
+            reset_counts()
+            vecs = svc.backend.encoder.encode(torch.from_numpy(ids).to(device),
+                                              torch.from_numpy(mask).to(device)).cpu()
+            fwd = route_counts()
+            fwd_plain = dict(plain.calls)
+        out["launches"]["modernbert_forward"] = fwd
+        cpu = enc.BertEncoder(cfg, enc.cached_init_params(cfg), device="cpu")
+        t = time.perf_counter()
+        ref = cpu.encode(torch.from_numpy(ids), torch.from_numpy(mask))
+        cpu_s = time.perf_counter() - t
+        cos = (vecs * ref).sum(-1)
+        out["forward"] = {"batch": batch, "seq": int(ids.shape[1]),
+                          "min_cosine": float(cos.min()), "cpu_forward_s": cpu_s,
+                          "launches": fwd, "plain_calls": fwd_plain}
+        log(f"{MODERNBERT_MODEL} ({cfg.layers} layers) forward of {batch} chunks at S="
+            f"{ids.shape[1]}: GPU against CPU min cosine {float(cos.min())} (CPU forward "
+            f"{cpu_s:.2f} s); launches {fwd}; plain versions called {fwd_plain}")
+        check(float(cos.min()) >= EMBED_COS_MIN,
+              f"the {MODERNBERT_MODEL} GPU forward differs from the CPU one")
+        del cpu
+        if device == "cuda":
+            check(fwd["attention_full"] == n_global and fwd["composed_window"] == n_local
+                  and fwd["composed_bias2d"] == 0,
+                  f"a {MODERNBERT_MODEL} forward ran d {fwd['attention_full']} times and the "
+                  f"windowed route {fwd['composed_window']} times")
+            check(fwd_plain == {"reference_attention": n_local},
+                  f"plain versions in a {MODERNBERT_MODEL} forward: {fwd_plain}")
+
+        db = work / "modernbert-synthetic-db"
+        with PlainCalls() as plain:
+            reset_counts()
+            built = build_synthetic(db, n_rows, device, model=MODERNBERT_MODEL)
+            idx = route_counts()
+            idx_plain = dict(plain.calls)
+            warm = open_session(db, device)
+            session = warm.pop("session")
+            reset_counts()
+            before = collections.Counter(plain.calls)
+            times, _, stages = run_queries(session, HYBRID_QUERIES[:4], "hybrid")
+            qc = route_counts()
+            q_plain = dict(plain.calls - before)
+        out["launches"]["modernbert_index"] = idx
+        out["launches"]["modernbert_search"] = qc
+        out["index"] = built
+        out["hybrid_p50_ms"] = statistics.median(times)
+        out["hybrid_stages_p50_ms"] = stage_medians(stages)
+        log(f"{MODERNBERT_MODEL} synthetic index: {n_rows} chunks in {built['seconds']:.2f} s "
+            f"({built['chunks_per_s']:.1f} chunks/s, {built['tokens_per_s']:.0f} tokens/s); "
+            f"launches {idx}, plain versions called {idx_plain}; hybrid p50 "
+            f"{out['hybrid_p50_ms']} ms, stages {out['hybrid_stages_p50_ms']}; query launches "
+            f"{qc}, plain versions called {q_plain}")
+        if device == "cuda":
+            forwards = -(-n_rows // _default_batch_size(spec.dims))
+            for what, c, pc, n in (("index", idx, idx_plain, forwards),
+                                   ("queries", qc, q_plain, len(set(HYBRID_QUERIES[:4])))):
+                check(c["attention_full"] == n_global * n and c["composed_window"] == n_local * n,
+                      f"{MODERNBERT_MODEL} {what}: d {c['attention_full']} and the windowed "
+                      f"route {c['composed_window']} times for {n} forwards")
+                check(pc == {"reference_attention": n_local * n},
+                      f"plain versions in {MODERNBERT_MODEL} {what}: {pc}")
+            check(qc["fused_cosine_topk"] >= len(set(HYBRID_QUERIES[:4])),
+                  "fused_cosine_topk did not run for every ModernBERT query")
+            out["composed_vs_d"] = composed_against_kernel_d(device)
+        del session, svc
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        registry.MODELS[MODERNBERT_MODEL] = spec
+    return out
+
+
+def write_cross_encoder(model_dir: Path, alibi: bool, seed: int = 0) -> None:
+    """A cross-encoder checkpoint of ``CROSS_ENCODER_ARCH``'s shape (6
+    layers, hidden 384, 12 heads of 32) from the port's random init at
+    ``seed``, with a pooler and a classifier (normal at 1/sqrt(fan-in)),
+    under Hugging Face BERT names with its config.json; ``alibi`` writes the
+    jina-reranker form (no position table)."""
+    import dataclasses
+
+    import numpy as np
+    from safetensors.numpy import save_file
+
+    from codesearch_tpu_torch.models import encoder as enc
+    from codesearch_tpu_torch.models.cross_encoder import CROSS_ENCODER_ARCH
+
+    cfg = dataclasses.replace(CROSS_ENCODER_ARCH,
+                              position_type="alibi" if alibi else "absolute")
+    tree = enc.init_params(cfg, seed)
+    rng = np.random.default_rng(seed)
+    h, emb = cfg.hidden, tree["embeddings"]
+    t = {"embeddings.word_embeddings.weight": emb["word"],
+         "embeddings.token_type_embeddings.weight": emb["token_type"],
+         "embeddings.LayerNorm.weight": emb["ln_scale"],
+         "embeddings.LayerNorm.bias": emb["ln_bias"],
+         "bert.pooler.dense.weight": (rng.standard_normal((h, h)) / h ** 0.5).astype(np.float32),
+         "bert.pooler.dense.bias": np.zeros(h, np.float32),
+         "classifier.weight": (rng.standard_normal((1, h)) / h ** 0.5).astype(np.float32),
+         "classifier.bias": np.zeros(1, np.float32)}
+    if not alibi:
+        t["embeddings.position_embeddings.weight"] = emb["position"]
+    for i, layer in enumerate(tree["layers"]):
+        for ours, theirs in enc.HF_LAYER_MAP.items():
+            arr = layer[ours].T if ours.endswith("_w") else layer[ours]
+            t[f"encoder.layer.{i}.{theirs}"] = np.ascontiguousarray(arr)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    save_file(t, str(model_dir / "model.safetensors"))
+    (model_dir / "config.json").write_text(json.dumps({
+        "architectures": ["BertForSequenceClassification"], "model_type": "bert",
+        "vocab_size": cfg.vocab_size, "hidden_size": h, "num_hidden_layers": cfg.layers,
+        "num_attention_heads": cfg.heads, "intermediate_size": cfg.intermediate,
+        "max_position_embeddings": cfg.max_len, "type_vocab_size": cfg.type_vocab_size,
+        "layer_norm_eps": cfg.layer_norm_eps, "hidden_act": "gelu",
+        "position_embedding_type": cfg.position_type}))
+
+
+def ranked_alike(got, want, tol: float) -> int:
+    """Positions where two ranked hit lists name different chunks although
+    ``want``'s scores around the position are more than ``tol`` apart
+    (``want`` holds one hit more than ``got``, for the last position)."""
+    ws = [h.score for h in want]
+    bad = 0
+    for i, h in enumerate(got):
+        if h.chunk_id != want[i].chunk_id:
+            near = ((i > 0 and ws[i - 1] - ws[i] <= tol)
+                    or (i + 1 < len(ws) and ws[i] - ws[i + 1] <= tol))
+            bad += not near
+    return bad
+
+
+def rerank_phase(work: Path, device: str, queries: list) -> dict:
+    """``search --rerank`` (limit 10, the default 100 candidates) on phase
+    5's hash index through a GPU and a CPU session, in three modes: the
+    weights-free proxy, a cross-encoder checkpoint with absolute positions
+    (d once a layer a query) and an ALiBi one (the biased route once a
+    layer, no d). The GPU session ranks the CPU session's hits off
+    near-ties, its final scores and its pair scores within RERANK_TOL."""
+    import numpy as np
+    import torch
+
+    from codesearch_tpu_torch.search import SearchOptions, SearchSession
+    from codesearch_tpu_torch.utils.constants import get_global_models_cache_dir
+
+    db = work / "synthetic-db"
+    model_dir = get_global_models_cache_dir() / RERANKER
+    out: dict = {"launches": {}, "tolerance": RERANK_TOL}
+    for mode in ("proxy", "absolute", "alibi"):
+        shutil.rmtree(model_dir, ignore_errors=True)
+        if mode != "proxy":
+            write_cross_encoder(model_dir, alibi=mode == "alibi")
+        gpu, cpu = SearchSession(db, device=device), SearchSession(db, device="cpu")
+        gpu.search("warm the session", SearchOptions(limit=10))
+        with PlainCalls() as plain:
+            reset_counts()
+            got = [gpu.search(q, SearchOptions(limit=10, rerank=True)) for q in queries]
+            counts = route_counts()
+        out["launches"][f"rerank_{mode}"] = counts
+        want = [cpu.search(q, SearchOptions(limit=11, rerank=True)) for q in queries]
+        mismatches = sum(ranked_alike(g.hits, w.hits, RERANK_TOL) for g, w in zip(got, want))
+        final_err = max(float(np.abs(np.array([h.score for h in g.hits])
+                                     - np.array([h.score for h in w.hits[:len(g.hits)]])).max())
+                        for g, w in zip(got, want))
+        # pair scores of one query's candidates, on each device
+        cands = cpu.search(queries[0], SearchOptions(limit=100)).hits
+        docs = [h.signature or h.content[:512] for h in cands]
+        pair_err = float(np.abs(gpu.reranker.model.score_pairs(queries[0], docs)
+                                - cpu.reranker.model.score_pairs(queries[0], docs)).max())
+        r = gpu.reranker
+        row = {"rerank_mode": got[0].rerank_mode, "pairs": len(docs),
+               "rerank_ms_p50": statistics.median(g.timings_ms["rerank"] for g in got),
+               "total_ms_p50": statistics.median(g.timings_ms["total"] for g in got),
+               "cpu_rerank_ms_p50": statistics.median(w.timings_ms["rerank"] for w in want),
+               "gate_open_rate": r.gate_open / max(r.gate_calls, 1),
+               "rank_mismatches_off_near_ties": mismatches, "max_final_score_err": final_err,
+               "max_pair_score_err": pair_err, "launches": counts,
+               "plain_calls": dict(plain.calls)}
+        out[mode] = row
+        log(f"search --rerank ({mode}) on the {device} session: {json.dumps(row)}")
+        expected = "proxy-bi-encoder" if mode == "proxy" else "cross-encoder"
+        check(all(g.rerank_mode == expected == w.rerank_mode for g, w in zip(got, want)),
+              f"rerank mode is not {expected}")
+        check(mismatches == 0 and final_err <= RERANK_TOL and pair_err <= RERANK_TOL,
+              f"the GPU session reranks ({mode}) unlike the CPU session")
+        if device == "cuda":
+            layers = gpu.reranker.model.cfg.layers if mode != "proxy" else 0
+            d_want = layers * len(queries) if mode == "absolute" else 0
+            b_want = layers * len(queries) if mode == "alibi" else 0
+            check(counts["attention_full"] == d_want and counts["composed_bias2d"] == b_want
+                  and counts["composed_window"] == 0,
+                  f"rerank ({mode}): d {counts['attention_full']} (want {d_want}), the biased "
+                  f"route {counts['composed_bias2d']} (want {b_want})")
+            check(dict(plain.calls) == ({"reference_attention": b_want} if b_want else {}),
+                  f"plain versions in rerank ({mode}): {dict(plain.calls)}")
+            check(counts["fused_cosine_topk"] >= len(queries),
+                  f"rerank ({mode}) queries did not run kernel a")
+        del gpu, cpu
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    shutil.rmtree(model_dir, ignore_errors=True)
+    return out
+
+
+def kernel_d_at_rotary_shapes(device: str) -> dict:
+    """Kernel d at the rotary encoders' index batches (Dh=64, the 64-token
+    bucket, ragged masks): nomic-v1.5's B=128, H=12 and ModernBERT's B=64,
+    H=16, held against its plain twin, with CUDA events (plain-kernel-
+    kernel-plain), device ms, its bound and ``scaled_dot_product_attention``."""
+    import torch
+
+    from codesearch_tpu_torch.examples.ablate_head_packing import cuda_ms
+    from codesearch_tpu_torch.ops import attention as att
+
+    out = {}
+    for label, (b, h) in ((NOMIC_MODEL, (128, 12)), (MODERNBERT_MODEL, (64, 16))):
+        q, k, v, mask = attention_inputs(b, h, 64, 64, seed=h, device=device)
+        got = att.attention_full(q, k, v, mask)
+        ref = att.attention_full_plain(q, k, v, mask)
+        err, _, ok = compare_attention(got, ref)
+        check(ok and bool(torch.isfinite(got).all()),
+              f"attention_full disagrees with its plain version at {label}'s shape")
+        t_plain_1 = cuda_ms(lambda: att.attention_full_plain(q, k, v, mask), reps=10)
+        t_kern_1 = cuda_ms(lambda: att.attention_full(q, k, v, mask), reps=10)
+        t_kern_2 = cuda_ms(lambda: att.attention_full(q, k, v, mask), reps=10)
+        t_plain_2 = cuda_ms(lambda: att.attention_full_plain(q, k, v, mask), reps=10)
+        row = {"shape": [b, h, 64, 64], "max_abs_err": err, "ms": min(t_kern_1, t_kern_2),
+               "plain_ms": min(t_plain_1, t_plain_2), **attention_bound(q, mask),
+               "library_ms": sdpa_ms(q, k, v, mask),
+               "device_ms": device_ms(lambda: att.attention_full(q, k, v, mask)),
+               "library_device_ms": device_ms(sdpa_call(q, k, v, mask))}
+        log(f"time attention_full at {label}'s index batch B={b} H={h} S=64 Dh=64 (ragged "
+            f"masks): {json.dumps(row)}")
+        out[label] = row
+    return out
+
+
+def encoder_family(work: Path, device: str) -> dict:
+    """Phase 10: Nomic, ModernBERT and ``search --rerank`` on the card."""
+    t0 = time.perf_counter()
+    d_times = kernel_d_at_rotary_shapes(device)
+    nomic = nomic_synthetic(work, NOMIC_ROWS, device)
+    t1 = time.perf_counter()
+    modernbert = modernbert_synthetic(work, device, MODERNBERT_ROWS, MODERNBERT_CHECK_BATCH)
+    t2 = time.perf_counter()
+    rerank = rerank_phase(work, device, HYBRID_QUERIES)
+    t3 = time.perf_counter()
+    seconds = {"nomic": t1 - t0, "modernbert": t2 - t1, "rerank": t3 - t2, "total": t3 - t0}
+    log(f"phase 10 seconds: {seconds}")
+    launches = {**nomic.pop("launches"), **modernbert.pop("launches"), **rerank.pop("launches")}
+    return {"nomic": nomic, "modernbert": modernbert, "rerank": rerank, "seconds": seconds,
+            "launches": launches, "d_at_rotary_shapes": d_times}
+
+
 def nvidia_smi_line() -> str:
     try:
         proc = subprocess.run(
@@ -1756,12 +2233,16 @@ def main() -> int:
         timing.update(packed_checks("cuda"))
         ablation = packed_ablation(work)
         served = serving(work, "cuda")
+        family = encoder_family(work, "cuda")
+        log(f"phase 10 results ({smi}): {json.dumps(family, default=str)}")
+        timing["attention_full"]["rotary_shapes"] = family["d_at_rotary_shapes"]
         kernels = []
         # launches: phase 7's counted paths, bge-small's index, its bf16 and
         # int8 queries (the "search" route) and the direct S=2048 call of the
-        # encoder attention that only e serves (the "direct" route), and
-        # phase 9's (the waves, MCP, HTTP), each counted on its own
-        paths = {**bert["launches"], **served["launches"]}
+        # encoder attention that only e serves (the "direct" route), phase
+        # 9's (the waves, MCP, HTTP) and phase 10's (Nomic, ModernBERT,
+        # rerank), each counted on its own
+        paths = {**bert["launches"], **served["launches"], **family["launches"]}
         for name, via in (("fused_cosine_topk", "search"), ("fused_cosine_topk_int8", "search"),
                           ("fused_scores_topk", "search"), ("attention_full", "search"),
                           ("attention_flash", "direct")):

@@ -186,7 +186,9 @@ def main(argv: list[str] | None = None) -> int:
         parser.print_help(sys.stderr)
         return 2
     if args.command not in PORTED:
-        error_print(f"`{args.command}` is not yet ported to the torch package "
+        what = "train --cross-encoder" if getattr(args, "cross_encoder", False) \
+            else args.command
+        error_print(f"`{what}` is not yet ported to the torch package "
                     "(ROADMAP.md Queue 1); the JAX CLI `codesearch` has it")
         return 2
     set_quiet(args.quiet)
@@ -271,6 +273,8 @@ def _response_json(resp, scores: bool) -> dict:
             for h in resp.hits
         ],
     }
+    if resp.rerank_mode:
+        out["rerank_mode"] = resp.rerank_mode
     if scores:
         out["timings_ms"] = {k: round(v, 2) for k, v in resp.timings_ms.items()}
     return out
@@ -295,6 +299,12 @@ def _pretty_print(resp, scores: bool, full: bool = False) -> None:
         if len(snippet) > len(shown):
             lines.append(f"   | … ({len(snippet) - len(shown)} more lines)")
         lines.append("")
+    if resp.rerank_mode == "proxy-bi-encoder":
+        lines.append(
+            "note: reranked with the weights-free bi-encoder proxy "
+            "(place jina-reranker-v1-turbo-en weights in the models cache "
+            "for true cross-encoder quality)"
+        )
     if scores:
         t = resp.timings_ms
         lines.append(

@@ -7,10 +7,10 @@ write-back, order-preserving merge. Queries are embedded inside the search
 pipeline's one device call (``featurize_queries``); ``embed_query`` embeds
 one on its own, through a query LRU, for the HTTP server's vector mode. The
 backend that turns texts into vectors runs on ``device``: the hash embedder
-for hash models, the BERT encoder (``models/encoder.py``, attention kernels
-d and e on CUDA) for BERT-family models with absolute positions, tokenized
-on the host into power-of-two token buckets. Rotary and ALiBi models raise ``NotImplementedError``
-rather than substituting another model.
+for hash models, the encoder (``models/encoder.py``: BERT, Nomic and
+ModernBERT; attention kernels d and e on CUDA, ModernBERT's local layers
+through the composed windowed attention) for every other registry model,
+tokenized on the host into power-of-two token buckets.
 """
 
 from __future__ import annotations
@@ -132,16 +132,16 @@ class _HashBackend:
 
 
 class _BertBackend:
-    """BERT-family backend: host tokenization into power-of-two token buckets
-    (16..512), device batches of ``_default_batch_size`` texts (256 at
-    d <= 384) through ``BertEncoder.encode``. Weights: ``model.safetensors``
+    """Encoder backend (every family of the registry): host tokenization
+    into power-of-two token buckets (16..512), device batches of
+    ``_default_batch_size`` texts (256 at d <= 384, 128 at 768, 64 above)
+    through ``BertEncoder.encode``. Weights: ``model.safetensors``
     in the models cache when present, else the JAX package's random init,
     regenerated in numpy and cached."""
 
     def __init__(self, spec: ModelSpec, models_dir: Path, device=None):
         self.spec = spec
         self.cfg = spec.arch
-        enc.check_supported(self.cfg)
         model_dir = models_dir / spec.short_name
         self.tokenizer = load_tokenizer(
             model_dir if model_dir.exists() else None, lowercase=self.cfg.lowercase,

@@ -1,14 +1,27 @@
-"""BERT-family text encoder on torch (port of ``codesearch_tpu/models/encoder.py``).
+"""BERT-family text encoders on torch (port of ``codesearch_tpu/models/encoder.py``).
 
-``BertEncoder`` runs ``arch_style="bert"`` models with learned absolute
-positions (MiniLM, BGE, e5, mxbai, jina-code): embeddings, post-norm layers
-with a fused QKV projection, exact GELU, CLS or masked-mean pooling and an L2
-norm, as ``_encoder_layer``/``encode_hidden``/``encode`` of the JAX package.
-Activations are bf16, LayerNorm runs in f32, the linear layers are
-``torch.matmul`` (XLA ran them outside any kernel) and every layer's
-attention is ``ops.attention.fused_encoder_attention``: kernels d and e on
-CUDA. Rotary (Nomic, ModernBERT) and ALiBi models raise
-``NotImplementedError``. The forward runs under ``torch.inference_mode()``.
+``BertEncoder`` runs the three architecture families of the registry, as
+``_encoder_layer``/``_nomic_layer``/``_modernbert_layer``,
+``encode_hidden`` and ``encode`` of the JAX package do:
+
+- ``arch_style="bert"``: embeddings, post-norm layers with a fused QKV
+  projection and exact GELU; learned absolute positions (MiniLM, BGE, e5,
+  mxbai, jina-code), or none and an ALiBi bias in every layer's attention
+  (``position_type="alibi"``, the jina-reranker form);
+- ``arch_style="nomic"``: rotary positions, a bias-free fused QKV, post-norm,
+  SwiGLU ``fc11(x) * silu(fc12(x))``;
+- ``arch_style="modernbert"``: pre-norm with bias-free norms (layer 0 has
+  no attention norm), rotary with a global and a local base, GeGLU, every
+  ``global_every``-th layer global and the others a sliding window of
+  ``local_window`` keys, a final norm.
+
+Activations are bf16, norms run in f32, rotary angles in f32 with ``cos``
+and ``sin`` rounded to bf16, the linear layers are ``torch.matmul`` (XLA ran
+them outside any kernel) and every layer's attention is
+``ops.attention.fused_encoder_attention``: kernels d and e on CUDA, the
+composed ``reference_attention`` for windowed and ALiBi layers (JAX has no
+kernel for them either). CLS or masked-mean pooling, then an L2 norm. The
+forward runs under ``torch.inference_mode()``.
 
 Weights come as the JAX package's parameter tree of numpy arrays, from one
 of three places:
@@ -17,7 +30,7 @@ of three places:
 - ``init_params(cfg, seed)``: the JAX package's deterministic random init
   ``init_params(PRNGKey(seed), cfg)``, regenerated bit for bit in numpy
   (``jax_random``); ``cached_init_params`` keeps it under the config dir,
-  since bge-small's ~33 M values take tens of seconds on one core;
+  since bge-small's ~33 M values (nomic-v1.5's 137 M) take tens of seconds;
 - ``load_safetensors(path, cfg)``: a Hugging Face checkpoint.
 """
 
@@ -32,7 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import fused_encoder_attention
+from ..ops.attention import alibi_bias, fused_encoder_attention
 from ..utils.constants import get_config_dir
 from ..utils.device import resolve_device
 from . import jax_random
@@ -41,33 +54,63 @@ from .registry import ArchConfig
 _INIT_SCALE = np.float32(0.02)
 
 
+ARCH_STYLES = ("bert", "nomic", "modernbert")
+POSITION_TYPES = ("absolute", "alibi")
+
+
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the architectures this encoder does not run yet."""
-    if cfg.arch_style != "bert" or cfg.position_type != "absolute":
-        raise NotImplementedError(
-            f"arch_style={cfg.arch_style!r}, position_type={cfg.position_type!r}: "
-            "the port runs BERT encoders with absolute positions; rotary "
-            "(Nomic, ModernBERT) and ALiBi models are not ported yet "
-            "(ROADMAP.md Queue 1)")
+    """Raise for an architecture no family of the JAX package describes."""
+    if cfg.arch_style not in ARCH_STYLES or cfg.position_type not in POSITION_TYPES:
+        raise ValueError(f"arch_style={cfg.arch_style!r}, position_type="
+                         f"{cfg.position_type!r}: the encoder runs {ARCH_STYLES} with "
+                         f"{POSITION_TYPES} positions")
 
 
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
 
+# keys ``init_params`` splits off the root before the layers' own
+_TOP_KEYS = {"bert": 6, "nomic": 3, "modernbert": 2}
+
+
 def _dense_init(key, shape) -> np.ndarray:
     """``(jax.random.normal(key, shape) * 0.02).astype(float32)``."""
     return jax_random.normal(key, shape) * _INIT_SCALE
 
 
+def _root_keys(cfg: ArchConfig, seed: int) -> list:
+    return jax_random.split(jax_random.prng_key(seed), _TOP_KEYS[cfg.arch_style] + cfg.layers)
+
+
 def init_layer_params(cfg: ArchConfig, layer: int, seed: int = 0) -> dict:
-    """Layer ``layer`` of ``init_params(cfg, seed)``, alone."""
+    """Layer ``layer`` of ``init_params(cfg, seed)``, alone: its key splits
+    in 8 (BERT), 5 (Nomic) or 4 (ModernBERT) for its dense weights."""
     check_supported(cfg)
-    key = jax_random.split(jax_random.prng_key(seed), 6 + cfg.layers)[6 + layer]
-    k = jax_random.split(key, 8)
+    key = _root_keys(cfg, seed)[_TOP_KEYS[cfg.arch_style] + layer]
     h, m = cfg.hidden, cfg.intermediate
     zeros = lambda n: np.zeros(n, np.float32)  # noqa: E731
     ones = lambda n: np.ones(n, np.float32)  # noqa: E731
+    if cfg.arch_style == "nomic":
+        k = jax_random.split(key, 5)
+        return {
+            "qkv_w": _dense_init(k[0], (h, 3 * h)), "out_w": _dense_init(k[1], (h, h)),
+            "norm1_scale": ones(h), "norm1_bias": zeros(h),
+            "fc11_w": _dense_init(k[2], (h, m)), "fc12_w": _dense_init(k[3], (h, m)),
+            "fc2_w": _dense_init(k[4], (m, h)),
+            "norm2_scale": ones(h), "norm2_bias": zeros(h),
+        }
+    if cfg.arch_style == "modernbert":
+        k = jax_random.split(key, 4)
+        out = {
+            "qkv_w": _dense_init(k[0], (h, 3 * h)), "o_w": _dense_init(k[1], (h, h)),
+            "wi_w": _dense_init(k[2], (h, 2 * m)), "wo_w": _dense_init(k[3], (m, h)),
+            "mlp_ln_scale": ones(h),
+        }
+        if layer > 0:
+            out["attn_ln_scale"] = ones(h)
+        return out
+    k = jax_random.split(key, 8)
     return {
         "q_w": _dense_init(k[0], (h, h)), "q_b": zeros(h),
         "k_w": _dense_init(k[1], (h, h)), "k_b": zeros(h),
@@ -82,28 +125,35 @@ def init_layer_params(cfg: ArchConfig, layer: int, seed: int = 0) -> dict:
 
 def init_params(cfg: ArchConfig, seed: int = 0) -> dict:
     """The JAX package's ``init_params(PRNGKey(seed), cfg)`` in numpy, equal
-    bit for bit: ``split(key, 6 + layers)`` gives the word (0), position (1)
-    and token-type (2) tables' keys and one key per layer (6 + i), each layer
-    splitting its key in 8 for its dense weights; every weight is
-    ``normal * 0.02`` in f32, biases zeros, LayerNorm scales ones."""
+    bit for bit. The root key splits in 6 (BERT: word 0, position 1,
+    token-type 2), 3 (Nomic: word 0, token-type 1) or 2 (ModernBERT: word
+    0) plus one key per layer; every weight is ``normal * 0.02`` in f32,
+    biases zeros, norm scales ones. An ALiBi BERT has no position table,
+    ModernBERT no token types, no norm biases and a top-level
+    ``final_ln_scale``."""
     check_supported(cfg)
-    keys = jax_random.split(jax_random.prng_key(seed), 6 + cfg.layers)
+    keys = _root_keys(cfg, seed)
     h = cfg.hidden
-    return {
-        "embeddings": {
-            "word": _dense_init(keys[0], (cfg.vocab_size, h)),
-            "token_type": _dense_init(keys[2], (cfg.type_vocab_size, h)),
-            "ln_scale": np.ones(h, np.float32),
-            "ln_bias": np.zeros(h, np.float32),
-            "position": _dense_init(keys[1], (cfg.max_len, h)),
-        },
-        "layers": [init_layer_params(cfg, i, seed) for i in range(cfg.layers)],
-    }
+    emb = {"word": _dense_init(keys[0], (cfg.vocab_size, h)),
+           "ln_scale": np.ones(h, np.float32)}
+    tree: dict = {"embeddings": emb}
+    if cfg.arch_style == "modernbert":
+        tree["final_ln_scale"] = np.ones(h, np.float32)
+    else:
+        tt_key = keys[1] if cfg.arch_style == "nomic" else keys[2]
+        emb["token_type"] = _dense_init(tt_key, (cfg.type_vocab_size, h))
+        emb["ln_bias"] = np.zeros(h, np.float32)
+        if cfg.arch_style == "bert" and cfg.position_type != "alibi":
+            emb["position"] = _dense_init(keys[1], (cfg.max_len, h))
+    tree["layers"] = [init_layer_params(cfg, i, seed) for i in range(cfg.layers)]
+    return tree
 
 
 def flatten_params(tree: dict) -> dict[str, np.ndarray]:
-    """{"embeddings.word": ..., "layers.3.q_w": ...} of a parameter tree."""
+    """{"embeddings.word": ..., "final_ln_scale": ..., "layers.3.q_w": ...}
+    of a parameter tree (layers may hold different names)."""
     flat = {f"embeddings.{k}": v for k, v in tree["embeddings"].items()}
+    flat.update({k: v for k, v in tree.items() if k not in ("embeddings", "layers")})
     for i, layer in enumerate(tree["layers"]):
         flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
     return flat
@@ -115,11 +165,13 @@ def unflatten_params(flat) -> dict:
         parts = name.split(".")
         if parts[0] == "embeddings":
             tree["embeddings"][parts[1]] = flat[name]
-        else:
+        elif parts[0] == "layers":
             i = int(parts[1])
             while len(tree["layers"]) <= i:
                 tree["layers"].append({})
             tree["layers"][i][parts[2]] = flat[name]
+        else:
+            tree[name] = flat[name]
     return tree
 
 
@@ -156,15 +208,12 @@ def cached_init_params(cfg: ArchConfig, seed: int = 0) -> dict:
 def params_from_jax(tree: dict) -> dict:
     """A JAX package parameter tree (jax or numpy leaves) as f32 numpy
     (writable copies: torch takes them without copying again)."""
-    return {
-        "embeddings": {k: np.array(v, np.float32) for k, v in tree["embeddings"].items()},
-        "layers": [{k: np.array(v, np.float32) for k, v in layer.items()}
-                   for layer in tree["layers"]],
-    }
+    return unflatten_params({k: np.array(v, np.float32)
+                             for k, v in flatten_params(tree).items()})
 
 
-# Hugging Face BERT checkpoint names (``codesearch_tpu/models/encoder.py``)
-_HF_LAYER_MAP = {
+# Hugging Face checkpoint names (``codesearch_tpu/models/encoder.py``)
+HF_LAYER_MAP = {
     "q_w": "attention.self.query.weight", "q_b": "attention.self.query.bias",
     "k_w": "attention.self.key.weight", "k_b": "attention.self.key.bias",
     "v_w": "attention.self.value.weight", "v_b": "attention.self.value.bias",
@@ -175,14 +224,26 @@ _HF_LAYER_MAP = {
     "mlp_out_w": "output.dense.weight", "mlp_out_b": "output.dense.bias",
     "mlp_ln_scale": "output.LayerNorm.weight", "mlp_ln_bias": "output.LayerNorm.bias",
 }
+# nomic-bert-2048 (nomic-ai/nomic-embed-text-v1): encoder.layers.{i}.*
+_NOMIC_LAYER_MAP = {
+    "qkv_w": "attn.Wqkv.weight", "out_w": "attn.out_proj.weight",
+    "norm1_scale": "norm1.weight", "norm1_bias": "norm1.bias",
+    "fc11_w": "mlp.fc11.weight", "fc12_w": "mlp.fc12.weight", "fc2_w": "mlp.fc2.weight",
+    "norm2_scale": "norm2.weight", "norm2_bias": "norm2.bias",
+}
+# ModernBERT (answerdotai/ModernBERT-large): layers.{i}.*, no attn_norm on layer 0
+_MODERNBERT_LAYER_MAP = {
+    "qkv_w": "attn.Wqkv.weight", "o_w": "attn.Wo.weight",
+    "wi_w": "mlp.Wi.weight", "wo_w": "mlp.Wo.weight",
+    "mlp_ln_scale": "mlp_norm.weight", "attn_ln_scale": "attn_norm.weight",
+}
 
 
-def load_safetensors(path: Path, cfg: ArchConfig) -> dict:
-    """A Hugging Face BERT checkpoint (``model.safetensors``) as the
-    parameter tree; dense kernels are transposed (HF stores [out, in])."""
+def read_safetensors(path: Path):
+    """(every tensor of a safetensors file as numpy, ``get(name)``: the f32
+    tensor under ``name`` or a ``bert.``/``model.``/``encoder.`` prefix)."""
     from safetensors import safe_open
 
-    check_supported(cfg)
     with safe_open(str(path), framework="np") as f:
         tensors = {key: f.get_tensor(key) for key in f.keys()}
 
@@ -192,23 +253,46 @@ def load_safetensors(path: Path, cfg: ArchConfig) -> dict:
                 return np.array(tensors[prefix + name], np.float32)
         raise KeyError(f"missing tensor {name!r} (available: {len(tensors)})")
 
-    tree: dict = {
-        "embeddings": {
-            "word": get("embeddings.word_embeddings.weight"),
-            "token_type": get("embeddings.token_type_embeddings.weight"),
-            "ln_scale": get("embeddings.LayerNorm.weight"),
-            "ln_bias": get("embeddings.LayerNorm.bias"),
-            "position": get("embeddings.position_embeddings.weight"),
-        },
-        "layers": [],
-    }
-    for i in range(cfg.layers):
-        layer = {}
-        for ours, theirs in _HF_LAYER_MAP.items():
-            t = get(f"encoder.layer.{i}.{theirs}")
-            layer[ours] = np.ascontiguousarray(t.T) if ours.endswith("_w") else t
-        tree["layers"].append(layer)
-    return tree
+    return tensors, get
+
+
+def load_safetensors(path: Path, cfg: ArchConfig) -> dict:
+    """A Hugging Face checkpoint (``model.safetensors``) of the config's
+    family as the parameter tree; dense kernels are transposed (HF stores
+    [out, in])."""
+    check_supported(cfg)
+    _, get = read_safetensors(path)
+
+    def layer(prefix: str, names: dict, skip=()) -> dict:
+        out = {}
+        for ours, theirs in names.items():
+            if ours in skip:
+                continue
+            t = get(prefix + theirs)
+            out[ours] = np.ascontiguousarray(t.T) if ours.endswith("_w") else t
+        return out
+
+    if cfg.arch_style == "nomic":
+        emb = {"word": get("embeddings.word_embeddings.weight"),
+               "token_type": get("embeddings.token_type_embeddings.weight"),
+               "ln_scale": get("emb_ln.weight"), "ln_bias": get("emb_ln.bias")}
+        layers = [layer(f"encoder.layers.{i}.", _NOMIC_LAYER_MAP) for i in range(cfg.layers)]
+        return {"embeddings": emb, "layers": layers}
+    if cfg.arch_style == "modernbert":
+        emb = {"word": get("embeddings.tok_embeddings.weight"),
+               "ln_scale": get("embeddings.norm.weight")}
+        layers = [layer(f"layers.{i}.", _MODERNBERT_LAYER_MAP,
+                        skip=() if i else ("attn_ln_scale",)) for i in range(cfg.layers)]
+        return {"embeddings": emb, "final_ln_scale": get("final_norm.weight"),
+                "layers": layers}
+    emb = {"word": get("embeddings.word_embeddings.weight"),
+           "token_type": get("embeddings.token_type_embeddings.weight"),
+           "ln_scale": get("embeddings.LayerNorm.weight"),
+           "ln_bias": get("embeddings.LayerNorm.bias")}
+    if cfg.position_type != "alibi":
+        emb["position"] = get("embeddings.position_embeddings.weight")
+    layers = [layer(f"encoder.layer.{i}.", HF_LAYER_MAP) for i in range(cfg.layers)]
+    return {"embeddings": emb, "layers": layers}
 
 
 # ---------------------------------------------------------------------------
@@ -216,38 +300,71 @@ def load_safetensors(path: Path, cfg: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def _layer_norm(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
-    """f32 LayerNorm, result in the input's dtype."""
+    """f32 LayerNorm (``bias`` None: bias-free), result in the input's dtype."""
     return F.layer_norm(x.float(), (x.shape[-1],), scale, bias, eps).to(x.dtype)
 
 
-class _BertLayer(nn.Module):
-    """One post-norm layer; dense weights and biases as bf16 (the JAX forward
-    casts each to the activation dtype), LayerNorm parameters as f32."""
+def _rope_tables(s: int, dh: int, base: float, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin [S, 1, Dh] of the rotate-half rotary embedding at
+    ``base``: f32 angles (bf16 phase error compounds over long sequences),
+    rounded to bf16 as JAX casts them to the activation dtype, kept as f32."""
+    inv = 1.0 / (base ** (torch.arange(0, dh, 2, dtype=torch.float32, device=device) / dh))
+    freqs = torch.outer(torch.arange(s, dtype=torch.float32, device=device), inv)
+    emb = torch.cat([freqs, freqs], dim=-1)[:, None, :]
+    return (emb.cos().to(torch.bfloat16).float(), emb.sin().to(torch.bfloat16).float())
+
+
+def _apply_rope(x: torch.Tensor, rope) -> torch.Tensor:
+    """``x * cos + rotate_half(x) * sin`` over [B, S, n, Dh] bf16 (here q
+    and k together, n = 2H), the f32 products summed and rounded once."""
+    cos, sin = rope
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    return (xf * cos + torch.cat([-x2, x1], dim=-1) * sin).to(x.dtype)
+
+
+class _Layer(nn.Module):
+    """Dense weights (``*_w``, ``*_b``) as bf16 buffers (the JAX forward casts
+    each to the activation dtype), norm parameters as f32."""
 
     def __init__(self, cfg: ArchConfig, p: dict, device):
         super().__init__()
         self.heads = cfg.heads
         self.eps = cfg.layer_norm_eps
-
-        def buf(name, arr, dtype):
+        for name, arr in p.items():
+            dtype = torch.bfloat16 if name.endswith(("_w", "_b")) else torch.float32
             t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
             self.register_buffer(name, t.to(device=device, dtype=dtype))
 
-        # fused QKV: one [h, 3h] product instead of three [h, h]
-        buf("qkv_w", np.concatenate([p["q_w"], p["k_w"], p["v_w"]], axis=1), torch.bfloat16)
-        buf("qkv_b", np.concatenate([p["q_b"], p["k_b"], p["v_b"]]), torch.bfloat16)
-        for name in ("o_w", "o_b", "mlp_in_w", "mlp_in_b", "mlp_out_w", "mlp_out_b"):
-            buf(name, p[name], torch.bfloat16)
-        for name in ("attn_ln_scale", "attn_ln_bias", "mlp_ln_scale", "mlp_ln_bias"):
-            buf(name, p[name], torch.float32)
+    def _heads(self, qkv: torch.Tensor, rope=None):
+        """q, k, v [B, H, S, Dh] of a fused [B, S, 3h] projection: strided
+        views, or with ``rope`` q and k rotated into one new [B, S, 2H, Dh]
+        tensor (v stays a view)."""
+        b, s, h3 = qkv.shape
+        dh = h3 // (3 * self.heads)
+        parts = qkv.view(b, s, 3 * self.heads, dh)
+        if rope is None:
+            q, k, v = parts.split(self.heads, dim=2)
+        else:
+            qk = _apply_rope(parts[:, :, :2 * self.heads], rope)
+            (q, k), v = qk.split(self.heads, dim=2), parts[:, :, 2 * self.heads:]
+        return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
-    def forward(self, x: torch.Tensor, maskf: torch.Tensor) -> torch.Tensor:
+
+class _BertLayer(_Layer):
+    """One post-norm BERT layer (``_encoder_layer``): fused biased QKV,
+    GELU MLP; ``bias2d`` is the ALiBi bias of an ALiBi model."""
+
+    def __init__(self, cfg: ArchConfig, p: dict, device):
+        fused = {"qkv_w": np.concatenate([p["q_w"], p["k_w"], p["v_w"]], axis=1),
+                 "qkv_b": np.concatenate([p["q_b"], p["k_b"], p["v_b"]])}
+        rest = {k: v for k, v in p.items() if k[:2] not in ("q_", "k_", "v_")}
+        super().__init__(cfg, {**fused, **rest}, device)
+
+    def forward(self, x: torch.Tensor, maskf: torch.Tensor, bias2d=None) -> torch.Tensor:
         b, s, h = x.shape
-        qkv = torch.matmul(x, self.qkv_w) + self.qkv_b
-        # [B, H, S, Dh] strided views of the projection: no copies
-        q, k, v = (t.view(b, s, self.heads, h // self.heads).transpose(1, 2)
-                   for t in qkv.split(h, dim=-1))
-        attn = fused_encoder_attention(q, k, v, maskf)
+        q, k, v = self._heads(torch.matmul(x, self.qkv_w) + self.qkv_b)
+        attn = fused_encoder_attention(q, k, v, maskf, bias2d=bias2d)
         attn = attn.transpose(1, 2).reshape(b, s, h)
         attn = torch.matmul(attn, self.o_w) + self.o_b
         x = _layer_norm(x + attn, self.attn_ln_scale, self.attn_ln_bias, self.eps)
@@ -256,36 +373,104 @@ class _BertLayer(nn.Module):
         return _layer_norm(x + mlp, self.mlp_ln_scale, self.mlp_ln_bias, self.eps)
 
 
+class _NomicLayer(_Layer):
+    """One nomic-bert layer (``_nomic_layer``): bias-free fused QKV, rotary,
+    post-norm, SwiGLU ``fc11(x) * silu(fc12(x))``."""
+
+    def forward(self, x: torch.Tensor, maskf: torch.Tensor, rope) -> torch.Tensor:
+        b, s, h = x.shape
+        q, k, v = self._heads(torch.matmul(x, self.qkv_w), rope)
+        attn = fused_encoder_attention(q, k, v, maskf)
+        attn = torch.matmul(attn.transpose(1, 2).reshape(b, s, h), self.out_w)
+        x = _layer_norm(x + attn, self.norm1_scale, self.norm1_bias, self.eps)
+        y = torch.matmul(x, self.fc11_w)
+        gate = torch.matmul(x, self.fc12_w)
+        mlp = torch.matmul(y * F.silu(gate), self.fc2_w)
+        return _layer_norm(x + mlp, self.norm2_scale, self.norm2_bias, self.eps)
+
+
+class _ModernBertLayer(_Layer):
+    """One ModernBERT layer (``_modernbert_layer``): pre-norm (none before
+    layer 0's attention), bias-free, rotary, windowed attention on local
+    layers, GeGLU ``gelu(inp) * gate`` of ``Wi``'s halves in that order."""
+
+    def __init__(self, cfg: ArchConfig, p: dict, device, index: int):
+        super().__init__(cfg, p, device)
+        self.is_global = index % cfg.global_every == 0
+        self.window = 0 if self.is_global else cfg.local_window
+        self.first = index == 0
+
+    def forward(self, x: torch.Tensor, maskf: torch.Tensor, rope) -> torch.Tensor:
+        b, s, h = x.shape
+        xa = x if self.first else _layer_norm(x, self.attn_ln_scale, None, self.eps)
+        q, k, v = self._heads(torch.matmul(xa, self.qkv_w), rope)
+        attn = fused_encoder_attention(q, k, v, maskf, window=self.window)
+        x = x + torch.matmul(attn.transpose(1, 2).reshape(b, s, h), self.o_w)
+        xm = _layer_norm(x, self.mlp_ln_scale, None, self.eps)
+        inp, gate = torch.matmul(xm, self.wi_w).chunk(2, dim=-1)
+        return x + torch.matmul(F.gelu(inp) * gate, self.wo_w)
+
+
 class BertEncoder(nn.Module):
-    """A BERT encoder on ``device`` from a parameter tree (see the module
-    docstring for the three sources)."""
+    """An encoder of any registry family on ``device`` from a parameter tree
+    (see the module docstring for the families and the three sources)."""
 
     def __init__(self, cfg: ArchConfig, params: dict, device=None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        emb = params["embeddings"]
-        for name in ("word", "token_type", "position", "ln_scale", "ln_bias"):
-            t = torch.from_numpy(np.ascontiguousarray(emb[name], np.float32))
+        for name, arr in params["embeddings"].items():
+            t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
             self.register_buffer(f"emb_{name}", t.to(self.device))
-        self.layers = nn.ModuleList(
-            _BertLayer(cfg, p, self.device) for p in params["layers"])
+        self.final_ln_scale = None
+        if cfg.arch_style == "modernbert":
+            t = torch.from_numpy(np.ascontiguousarray(params["final_ln_scale"], np.float32))
+            self.final_ln_scale = t.to(self.device)
+            layers = (_ModernBertLayer(cfg, p, self.device, i)
+                      for i, p in enumerate(params["layers"]))
+        elif cfg.arch_style == "nomic":
+            layers = (_NomicLayer(cfg, p, self.device) for p in params["layers"])
+        else:
+            layers = (_BertLayer(cfg, p, self.device) for p in params["layers"])
+        self.layers = nn.ModuleList(layers)
 
     @torch.inference_mode()
     def encode_hidden(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                       token_type_ids: torch.Tensor | None = None) -> torch.Tensor:
         """[B, S] ids + mask -> [B, S, hidden] bf16 states."""
+        cfg = self.cfg
         s = input_ids.shape[1]
+        maskf = attention_mask.float()
+        # ids past the table take its last row, as XLA's gather clamps them
+        x = self.emb_word[input_ids.long().clamp(max=self.emb_word.shape[0] - 1)]
+        if cfg.arch_style == "modernbert":
+            x = _layer_norm(x, self.emb_ln_scale, None, cfg.layer_norm_eps).to(torch.bfloat16)
+            dh = cfg.hidden // cfg.heads
+            ropes = {base: _rope_tables(s, dh, base, self.device)
+                     for base in {cfg.rope_base, cfg.rope_base_local}}
+            for layer in self.layers:
+                x = layer(x, maskf, ropes[cfg.rope_base if layer.is_global
+                                         else cfg.rope_base_local])
+            return _layer_norm(x, self.final_ln_scale, None, cfg.layer_norm_eps)
         tt = self.emb_token_type[0] if token_type_ids is None \
             else self.emb_token_type[token_type_ids.long()]
-        x = self.emb_word[input_ids.long()] + tt
-        x = x + self.emb_position[:s][None]
-        x = _layer_norm(x, self.emb_ln_scale, self.emb_ln_bias, self.cfg.layer_norm_eps)
+        x = x + tt
+        bias2d = None
+        if cfg.arch_style == "bert" and cfg.position_type == "alibi":
+            # one [H, S, S] bias a forward, shared by every layer
+            bias2d = alibi_bias(cfg.heads, s, device=self.device)
+        elif cfg.arch_style == "bert":
+            x = x + self.emb_position[:s][None]
+        x = _layer_norm(x, self.emb_ln_scale, self.emb_ln_bias, cfg.layer_norm_eps)
         x = x.to(torch.bfloat16)
-        maskf = attention_mask.float()
+        if cfg.arch_style == "nomic":
+            rope = _rope_tables(s, cfg.hidden // cfg.heads, cfg.rope_base, self.device)
+            for layer in self.layers:
+                x = layer(x, maskf, rope)
+            return x
         for layer in self.layers:
-            x = layer(x, maskf)
+            x = layer(x, maskf, bias2d)
         return x
 
     @torch.inference_mode()

@@ -13,6 +13,9 @@ hash table and the encoders' random init without JAX.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 _U32 = np.uint32
@@ -134,10 +137,23 @@ def normal_f32(key: tuple[int, int], n: int, start: int = 0) -> np.ndarray:
 
 def normal(key: tuple[int, int], shape, block: int = 1 << 20) -> np.ndarray:
     """``jax.random.normal(key, shape)`` in float32, made in blocks of
-    ``block`` entries so the temporaries stay small."""
+    ``block`` entries so the temporaries stay small. Blocks are independent
+    and numpy releases the interpreter lock in them, so several threads
+    (up to 8) make them at once."""
     n = int(np.prod(shape))
     out = np.empty(n, np.float32)
-    for a in range(0, n, block):
+
+    def fill(a: int) -> None:
         b = min(n, a + block)
         out[a:b] = normal_f32(key, b - a, a)
+
+    starts = range(0, n, block)
+    workers = min(len(starts), os.cpu_count() or 1, 8)
+    if workers <= 1:
+        for a in starts:
+            fill(a)
+    else:
+        with ThreadPoolExecutor(workers) as pool:
+            for _ in pool.map(fill, starts):
+                pass
     return out.reshape(shape)

@@ -15,6 +15,7 @@ public function.
   with K and V streamed in blocks of 64 keys under an online softmax, all in
   f32. Beside it its plain twin.
 - ``fused_encoder_attention``: the encoder's entry point.
+- ``alibi_bias``: the symmetric ALiBi bias [H, S, S] of the JAX package.
 
 A CPU tensor takes a kernel's plain twin; a CUDA tensor launches the
 hand-written kernel of ``csrc/attention_kernels.cu`` or raises. The CUDA
@@ -35,6 +36,12 @@ refuses longer ones. The TPU dispatch
 and is not carried over. The attention backward is not ported: a CUDA
 input with ``requires_grad`` raises. ``launch_counts`` counts kernel
 launches only (``launches_by_seq`` the same launches by sequence length).
+
+Windowed (ModernBERT's local layers) and biased (ALiBi) attention have no
+Pallas kernel: JAX composes them in XLA on every backend. The port runs
+them as ``reference_attention`` on either device, a torch composition like
+the port's other XLA compositions, and counts each such call on CUDA in
+``composed_counts`` (by option), apart from the kernel launches.
 """
 
 from __future__ import annotations
@@ -57,11 +64,15 @@ FULL_MAX_SEQ = {32: 1552, 64: 832}
 
 launch_counts = {"attention_full": 0, "attention_flash": 0}
 launches_by_seq: collections.Counter = collections.Counter()   # (kernel, S) -> launches
+# calls of the composed route on CUDA: a call with a bias counts as "bias2d"
+composed_counts = {"window": 0, "bias2d": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    """Set the kernel launch counts and the composed route's counts to 0."""
+    for counts in (launch_counts, composed_counts):
+        for name in counts:
+            counts[name] = 0
     launches_by_seq.clear()
 
 
@@ -81,6 +92,17 @@ def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
     return ((1.0 - mask.float()) * NEG_INF)[:, None, None, :]
 
 
+def alibi_bias(heads: int, seq: int, device=None) -> torch.Tensor:
+    """Symmetric (bidirectional-encoder) ALiBi bias [H, S, S] f32 on
+    ``device``: -m_h * |i - j| with the geometric slopes 2**(-8 (h + 1) / H)
+    (JinaBERT-v2 / MosaicBERT style), as the JAX package builds it."""
+    slopes = 2.0 ** (-8.0 * (torch.arange(heads, dtype=torch.float32, device=device) + 1.0)
+                     / heads)
+    idx = torch.arange(seq, device=device)
+    dist = (idx[:, None] - idx[None, :]).abs().to(torch.float32)
+    return -slopes[:, None, None] * dist[None]
+
+
 # ---------------------------------------------------------------------------
 # plain versions (CPU tensors, tests, and the card's comparisons)
 # ---------------------------------------------------------------------------
@@ -88,16 +110,17 @@ def _mask_bias(mask: torch.Tensor) -> torch.Tensor:
 def reference_attention(q, k, v, mask, window: int = 0, bias2d=None):
     """The XLA reference: f32 scores / sqrt(Dh), the mask bias, an optional
     per-head [H, S, S] bias and a band |i - j| <= window // 2, softmax, and
-    probabilities cast to V's dtype before ``p @ V``."""
+    probabilities cast to V's dtype before ``p @ V``. The [B, H, S, S]
+    scores are updated in place (they are the route's memory)."""
     dh = q.shape[-1]
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(dh)
-    scores = scores + _mask_bias(mask)
+    scores += _mask_bias(mask)
     if bias2d is not None:
-        scores = scores + bias2d.float()[None]
+        scores += bias2d.float()[None]
     if window:
         idx = torch.arange(q.shape[2], device=q.device)
         band = (idx[:, None] - idx[None, :]).abs() <= window // 2
-        scores = torch.where(band[None, None], scores, NEG_INF)
+        scores.masked_fill_(~band[None, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
 
@@ -219,13 +242,12 @@ def attention_flash(q, k, v, mask):
 def fused_encoder_attention(q, k, v, mask, window: int = 0, bias2d=None):
     """The encoder's attention: kernel d up to ``full_max_seq(Dh)``, kernel
     e beyond (CPU tensors take their plain twins). Windowed and biased
-    attention have no kernel yet: on the CPU they take
-    ``reference_attention``, on CUDA they raise."""
+    attention take ``reference_attention`` on either device, as JAX sends
+    them to its XLA composition on every backend; on CUDA each such call
+    counts in ``composed_counts``."""
     if window or bias2d is not None:
         if not _on_cpu(q, k, v, mask, bias2d):
-            raise NotImplementedError(
-                "windowed (ModernBERT) and biased (ALiBi) attention have no CUDA "
-                "kernel yet (ROADMAP.md Queue 1)")
+            composed_counts["bias2d" if bias2d is not None else "window"] += 1
         return reference_attention(q, k, v, mask, window=window, bias2d=bias2d)
     if q.shape[2] <= full_max_seq(q.shape[3]):
         return attention_full(q, k, v, mask)

@@ -1,4 +1,4 @@
-"""Ranking: RRF fusion (the neural cross-encoder reranker is not ported yet)."""
+"""Ranking: RRF fusion and neural cross-encoder reranking."""
 
 from .fusion import (  # noqa: F401
     DEFAULT_RRF_K,
@@ -8,3 +8,4 @@ from .fusion import (  # noqa: F401
     rrf_fusion_with_exact,
     vector_only,
 )
+from .neural import NeuralReranker  # noqa: F401

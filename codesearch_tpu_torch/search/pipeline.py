@@ -7,9 +7,11 @@ call: variant embedding + exact vector top-k (+ resident BM25 top-k in
 hybrid mode), whose result arrays are read back together → best-score-per-
 chunk dedup → early termination to vector-only on a confident top-5 →
 hybrid: BM25 + per-identifier exact match + adaptive 3-way RRF → path
-filter → primary-language boost ×1.2 → kind boost ×1.15. ``search_many``
-answers a wave of queries from one device call. Neural reranking is not
-ported yet and raises.
+filter → primary-language boost ×1.2 → kind boost ×1.15 → with
+``rerank``, the neural rerank blend of the top candidates (the cross-encoder
+on the session's device, or its weights-free proxy) and the path filter
+again. ``search_many`` answers a wave of queries from one device call
+(rerank waves query by query, as the JAX session does).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..index.db_discovery import resolve_database_with_message
 from ..index.pipeline import read_metadata
 from ..models.hash_embedder import batch_features
 from ..rerank.fusion import rrf_fusion_with_exact, vector_only
+from ..rerank.neural import NeuralReranker
 from ..utils.constants import EMBEDDER_VERSION, FTS_DIR_NAME
 from ..utils.device import resolve_device, to_host
 from ..utils.errors import SearchError
@@ -53,7 +56,6 @@ from .degrade import dispatch_with_degrade
 
 __all__ = ["SearchHit", "SearchOptions", "SearchResponse", "SearchSession", "search"]
 
-_NOT_PORTED = "not ported yet (ROADMAP.md Queue 1)"
 EARLY_TERMINATION_SCORE = 0.85   # top-5 similarity (ref: distance < 0.15)
 LANGUAGE_BOOST = 1.2
 KIND_BOOST = 1.15
@@ -179,6 +181,8 @@ class SearchSession:
         self.store = VectorStore(db_path, dims=dims, readonly=readonly,
                                  int8=bool(meta.get("int8", False)), device=self.device)
         self.fts = FtsStore(db_path / FTS_DIR_NAME, readonly=readonly, device=self.device)
+        # the cross-encoder, built on the first rerank query
+        self.reranker: NeuralReranker | None = None
         # response LRU keyed on the options + store mutation counters (any
         # index change invalidates); agents (the MCP consumer) repeat queries
         self._resp_cache = ResponseCache()
@@ -202,8 +206,6 @@ class SearchSession:
         options = options or SearchOptions()
         if not query or not query.strip():
             raise SearchError("empty query")
-        if options.rerank:
-            raise NotImplementedError(f"neural rerank is {_NOT_PORTED}")
         key = self._cache_key(query, options)
         cached = self._resp_cache.get(key)
         if cached is not None:
@@ -280,7 +282,8 @@ class SearchSession:
         vector_ranked, fused_fts, exact_prefetched, timings, t_all,
     ) -> SearchResponse:
         """Post-retrieval stages: early termination → fusion →
-        boost-bounded lazy materialization → filters → response."""
+        boost-bounded lazy materialization → filters → optional rerank →
+        response."""
         # ---- early termination (search/mod.rs:595-621) -------------------
         top5 = [s for _, s in vector_ranked[:5]]
         confident = len(top5) >= 5 and min(top5) > EARLY_TERMINATION_SCORE
@@ -339,7 +342,11 @@ class SearchSession:
             options.path_filter or options.min_score is not None
             or (options.per_file or 0) > 0 or has_ops
         )
-        need = options.limit
+        if options.rerank:
+            need = max(options.rerank_top if options.rerank_top is not None
+                       else 0, 100, options.limit)
+        else:
+            need = options.limit
         top_scores: list[float] = []   # min-heap of the best `need` scores
         hits: list[SearchHit] = []
         for f in fused:
@@ -387,12 +394,40 @@ class SearchSession:
             elif score > top_scores[0]:
                 heapq.heapreplace(top_scores, score)
 
-        # ---- path filter (search/mod.rs:698-745) ------------------------
+        # ---- path filter (pre-rerank, search/mod.rs:698-745) -------------
         if options.path_filter:
             needle = options.path_filter
             hits = [h for h in hits if needle in h.path]
 
         hits.sort(key=lambda h: -h.score)
+
+        # ---- neural rerank blend (search/mod.rs:829-866) -----------------
+        rerank_mode: str | None = None
+        if options.rerank and hits:
+            t = time.time()
+            if self.reranker is None:
+                self.reranker = NeuralReranker(device=self.device)
+            rerank_mode = self.reranker.model.mode
+            n_rerank = (max(options.rerank_top, 0)
+                        if options.rerank_top is not None
+                        else max(100, options.limit))
+            cands = hits[:n_rerank]
+            reranked = self.reranker.rerank_and_blend(
+                query,
+                [(h.chunk_id, h.signature or h.content[:512]) for h in cands],
+                {h.chunk_id: h.score for h in cands},
+            )
+            order = {r.chunk_id: (i, r.final_score) for i, r in enumerate(reranked)}
+            cands.sort(key=lambda h: order.get(h.chunk_id, (len(order), 0.0))[0])
+            for h in cands:
+                if h.chunk_id in order:
+                    h.score = order[h.chunk_id][1]
+            hits = cands + hits[len(cands):]
+            timings["rerank"] = (time.time() - t) * 1000
+            # path filter re-applied post-rerank (search/mod.rs:869-882)
+            if options.path_filter:
+                needle = options.path_filter
+                hits = [h for h in hits if needle in h.path]
 
         if options.min_score is not None:
             hits = [h for h in hits if h.score >= options.min_score]
@@ -414,6 +449,7 @@ class SearchSession:
             total_chunks=len(self.store),
             timings_ms=timings,
             db_path=str(self.db_path),
+            rerank_mode=rerank_mode,
         )
 
     def _prep_query(self, query: str, options: SearchOptions) -> dict:

@@ -226,6 +226,7 @@ def as_if_cuda(monkeypatch):
     ta.reset_launch_counts()
     yield
     assert ta.launch_counts == {"attention_full": 0, "attention_flash": 0}
+    ta.reset_launch_counts()
 
 
 def _bf16(s=64, dh=DH):
@@ -236,13 +237,14 @@ def _bf16(s=64, dh=DH):
 @pytest.mark.parametrize("case", ["window", "bias2d", "requires_grad", "f32", "head_size",
                                   "strides", "beyond_d_bound"])
 def test_cuda_branch_refuses_what_the_kernels_do_not_take(as_if_cuda, case):
+    # window and bias2d have no kernel to refuse them: on CUDA they take the
+    # composed route (reference_attention), counted apart from the launches
     q, k, v, mask = _bf16()
-    if case == "window":
-        with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-            ta.fused_encoder_attention(q, k, v, mask, window=128)
-    elif case == "bias2d":
-        with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-            ta.fused_encoder_attention(q, k, v, mask, bias2d=torch.zeros(H, 64, 64))
+    if case in ("window", "bias2d"):
+        kw = {"window": 16} if case == "window" else {"bias2d": ta.alibi_bias(H, 64)}
+        got = ta.fused_encoder_attention(q, k, v, mask, **kw)
+        assert torch.equal(got, ta.reference_attention(q, k, v, mask, **kw))
+        assert ta.composed_counts == {"window": 0, "bias2d": 0, case: 1}
     elif case == "requires_grad":
         with pytest.raises(NotImplementedError, match="backward is not ported"):
             ta.fused_encoder_attention(q.requires_grad_(True), k, v, mask)
@@ -311,3 +313,18 @@ def test_encoder_attention_takes_strided_views_on_cuda(cuda):
     got = ta.fused_encoder_attention(q, k, v, mask)
     ref = ta.attention_full_plain(q.contiguous(), k.contiguous(), v.contiguous(), mask)
     np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("heads,seq", [(4, 24), (12, 128), (16, 7)])
+def test_alibi_bias_matches_jax(heads, seq):
+    got = ta.alibi_bias(heads, seq)
+    assert got.dtype == torch.float32 and got.shape == (heads, seq, seq)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ja.alibi_bias(heads, seq)))
+
+
+def test_composed_route_is_not_counted_on_the_cpu():
+    q, k, v, mask = _bf16()
+    ta.reset_launch_counts()
+    ta.fused_encoder_attention(q, k, v, mask, window=16)
+    ta.fused_encoder_attention(q, k, v, mask, bias2d=ta.alibi_bias(H, 64))
+    assert ta.composed_counts == {"window": 0, "bias2d": 0}

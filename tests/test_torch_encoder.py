@@ -13,6 +13,9 @@
 - A tiny random ``transformers.BertModel`` saved as safetensors and loaded
   by ``load_safetensors`` matches HF (cosine > 0.999, as
   ``tests/test_hf_parity.py`` holds the JAX encoder; HF runs f32).
+- nomic-v1.5's and modernbert-large's own configs: layers 0 and last of the
+  init bit for bit, and a forward at their widths; an ALiBi BERT's forward
+  (``tests/test_torch_encoder_family.py`` holds the families at small sizes).
 """
 
 import dataclasses
@@ -153,16 +156,63 @@ def test_safetensors_match_hf(tmp_path):
     assert _cos_rows(pooled, ref_pool).min() > 0.999
 
 
+def _jax_layer_init(monkeypatch, cfg, i: int) -> dict:
+    """Layer ``i`` of JAX's eager ``init_params(PRNGKey(0), cfg)``, making
+    only that layer's weights: the other dense inits are deferred as (key,
+    shape) (under ``jit`` XLA fuses ``normal * 0.02`` and rounds otherwise)."""
+    dense = je._dense_init
+    with monkeypatch.context() as m:
+        m.setattr(je, "_dense_init", lambda key, shape, scale=0.02: (key, shape, scale))
+        layer = je.init_params(jax.random.PRNGKey(0), cfg)["layers"][i]
+    return {k: np.asarray(dense(*v) if isinstance(v, tuple) else v) for k, v in layer.items()}
+
+
 @pytest.mark.parametrize("model", ["nomic-v1.5", "modernbert-large"])
-def test_rotary_models_raise(model):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        te.init_params(MODELS[model].arch)
+def test_rotary_models_raise(monkeypatch, model):
+    # named for the refusal the rotary families met before they were ported;
+    # now: layers 0 and last of the registry's own config equal JAX's init bit
+    # for bit, and a forward at the published widths (depth cut to 2: for
+    # ModernBERT a global and a local layer, S=160 past its 128-key window;
+    # the word table cut to 512 rows) matches JAX's at the module's bounds
+    cfg = MODELS[model].arch
+    for i in (0, cfg.layers - 1):
+        ref = _jax_layer_init(monkeypatch, cfg, i)
+        ours = te.init_layer_params(cfg, i)
+        assert set(ours) == set(ref), i
+        assert all(_bits_equal(ours[k], ref[k]) for k in ours), i
+    cut = dataclasses.replace(cfg, layers=2, vocab_size=512)
+    params = je.init_params(jax.random.PRNGKey(1), cut)
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, cut.vocab_size, (2, 160)).astype(np.int32)
+    mask = np.ones((2, 160), np.int32)
+    mask[1, 100:] = 0
+    enc = te.BertEncoder(cut, te.params_from_jax(params), device="cpu")
+    jh = np.asarray(je.encode_hidden(params, jnp.asarray(ids), jnp.asarray(mask), cut),
+                    np.float32)
+    th = enc.encode_hidden(torch.from_numpy(ids), torch.from_numpy(mask)).float().numpy()
+    valid = mask.astype(bool)
+    assert np.abs(jh - th)[valid].max() <= HIDDEN_ATOL
+    assert _cos_rows(jh[valid], th[valid]).min() >= COS_MIN
 
 
-def test_alibi_raises():
-    cfg = dataclasses.replace(SMALL, position_type="alibi")
-    with pytest.raises(NotImplementedError, match="ALiBi"):
-        te.BertEncoder(cfg, te.init_params(SMALL), device="cpu")
+@pytest.mark.parametrize("s", [24, 128])
+def test_alibi_raises(small_params, s):
+    # named for the refusal ALiBi models met before they were ported; now an
+    # ALiBi BERT (no position table, the [H, S, S] bias in every layer)
+    # matches JAX's forward, with token types as the cross-encoder gives them
+    cfg = dataclasses.replace(SMALL, position_type="alibi", pooling="cls")
+    params = je.init_params(jax.random.PRNGKey(0), cfg)
+    assert "position" not in params["embeddings"]
+    ids, mask = _ids_mask(s, seed=s + 1)
+    tt = (np.arange(s)[None, :] >= s // 3).astype(np.int32).repeat(3, axis=0)
+    enc = te.BertEncoder(cfg, te.params_from_jax(params), device="cpu")
+    jh = np.asarray(je.encode_hidden(params, jnp.asarray(ids), jnp.asarray(mask), cfg,
+                                     jnp.asarray(tt)), np.float32)
+    th = enc.encode_hidden(torch.from_numpy(ids), torch.from_numpy(mask),
+                           torch.from_numpy(tt)).float().numpy()
+    valid = mask.astype(bool)
+    assert np.abs(jh - th)[valid].max() <= HIDDEN_ATOL
+    assert _cos_rows(jh[valid], th[valid]).min() >= COS_MIN
 
 
 @pytest.mark.cuda

@@ -244,13 +244,23 @@ def test_gpu_session_deep_limit_matches_cpu(cuda, tmp_repo, tmp_path):
 
 
 def test_port_refuses_bert_models(tmp_path):
-    # BERT encoders with absolute positions run (tests/test_torch_bert_slice.py);
-    # the rotary and ALiBi families are refused, not substituted
+    # named for the refusal the rotary families met before they were ported:
+    # now EmbeddingService builds both (at test widths) on the CPU and embeds
+    import dataclasses
+
     from codesearch_tpu_torch.embed import EmbeddingService
+    from codesearch_tpu_torch.models.registry import MODELS
 
     for model in ("nomic-v1.5", "modernbert-large"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EmbeddingService(model, device="cpu")
+        spec = MODELS[model]
+        arch = dataclasses.replace(spec.arch, hidden=64, heads=4, intermediate=96, layers=3)
+        svc = EmbeddingService(dataclasses.replace(spec, arch=arch, dims=64),
+                               use_persistent_cache=False, device="cpu")
+        assert svc.fused_kind() == "bert"
+        assert svc.backend.encoder.cfg.arch_style == spec.arch.arch_style
+        vec = svc.embed_query("where is the rotary cache built")
+        assert vec.shape == (64,) and np.isfinite(vec).all()
+        assert abs(float(np.linalg.norm(vec)) - 1.0) < 1e-4
 
 
 def test_cli_index_and_search_json(tmp_repo, tmp_path):
