@@ -31,8 +31,15 @@ when any phase fails:
    holes (zeros before a row's last valid key) and a fully masked row, d
    timed on ragged and on full masks; window (ModernBERT's 128 at H=16,
    Dh=64) and bias2d (ALiBi) taking the composed route, counted apart and
-   launching no kernel, equal to the CPU's ``reference_attention``; and
-   requires_grad and unsupported inputs raising;
+   launching no kernel, equal to the CPU's ``reference_attention``;
+   unsupported inputs raising; the autograd route (inputs that require
+   grad: d or e forward, ``reference_attention`` recomputed backward) at the
+   training shapes (d at B=64, H=12, S=128 and B=96, H=6, S=256; e at B=8,
+   S=2048) against ``reference_attention`` under autograd: the output
+   within the kernels' bound, dq, dk, dv within 2e-2 + 2e-2 |ref|, one
+   launch a forward and one counted recompute a backward, with the times
+   of the forward, the recompute, the route and
+   ``scaled_dot_product_attention`` forward and backward;
 4. indexes the port's own ``codesearch_tpu_torch/`` sources with the port
    (code-hash-384) and searches that index through the port's CLI
    (``--json``);
@@ -90,7 +97,19 @@ when any phase fails:
    (d six times a query) and an ALiBi one (the biased route six times, no
    d), written by the script from seed 0. ``reference_attention`` may run
    on the card only as the windowed and biased route, as often as that
-   route counts.
+   route counts;
+11. training on the card: ``codesearch-torch train`` (in this process) on
+   phase 4's index, 3 epochs, against ``--platform cpu`` on a copy (losses
+   within 1e-3, the trained tables' bf16 entries equal in 99% of the
+   touched rows, the searches after the re-index ranked alike, kernels a
+   and c launched); ``train --cross-encoder`` (one epoch; d once a layer a
+   step and its backward recomputed as often), then ``search --rerank``
+   running the trained ``local-cross-encoder`` (d in the pair forwards,
+   ranked as a CPU session); bge-small contrastive steps at batch 64 and
+   ``max_len`` 128, one held to the CPU's (loss within 1e-2, gradients at
+   cosine 0.99 per parameter), ten timed (d 24 times a step and 24
+   recomputes, no other plain version), two profiled. The autograd
+   route's backward runs ``reference_attention`` as often as it counts.
 
 Beside each kernel's time (CUDA events around one call) it prints its
 bound on the card (the larger of the bytes it must move over 3.35 TB/s and
@@ -111,6 +130,7 @@ from __future__ import annotations
 import collections
 import importlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -212,7 +232,8 @@ def launch_counts() -> dict:
 
 def route_counts() -> dict:
     """``launch_counts()`` and the composed attention route's calls
-    (``composed_window``, ``composed_bias2d``)."""
+    (``composed_window``, ``composed_bias2d``) and the autograd route's
+    backward recomputes (``composed_backward``)."""
     from codesearch_tpu_torch.ops import attention as att
 
     return {**launch_counts(), **{f"composed_{k}": v for k, v in att.composed_counts.items()}}
@@ -648,7 +669,7 @@ def attention_checks(device: str) -> dict:
     z48 = torch.zeros(2, 12, 64, 48, dtype=torch.bfloat16, device=device)
     before = dict(att.launch_counts)
     for what, call, exc in (
-            ("requires_grad", lambda: att.fused_encoder_attention(
+            ("requires_grad (kernel d's wrapper alone)", lambda: att.attention_full(
                 q.clone().requires_grad_(True), k, v, mask), NotImplementedError),
             ("f32 inputs", lambda: att.attention_full(q.float(), k.float(), v.float(), mask),
              TypeError),
@@ -662,6 +683,106 @@ def attention_checks(device: str) -> dict:
     check(att.launch_counts == before, "an attention wrapper launched on refused inputs")
     for name in out:
         out[name]["max_abs_err"] = errs[name]
+    return out
+
+
+# (kernel, B, H, S, Dh, shape): the training shapes of phase 11 (bge-small's
+# contrastive batch, the cross-encoder's largest pair batch) and e past d's
+# threshold
+GRAD_CASES = [("attention_full", 64, 12, 128, 32, "contrastive (bge-small, B=64, S=128)"),
+              ("attention_full", 96, 6, 256, 32, "cross-encoder pairs (B=96, S=256)"),
+              ("attention_flash", 8, 12, 2048, 32, "e at S=2048")]
+GRAD_ATOL = 2e-2    # dq, dk, dv against reference_attention's autograd
+GRAD_RTOL = 2e-2
+
+
+def attention_backward_bound(q, mask) -> dict:
+    """The least time of the backward on these inputs: q, k, v and the
+    output gradient read and dq, dk, dv written (bf16; K and V only over
+    the keys that count, as ``attention_bound``), and five products (the
+    scores again, dV, dP, dQ, dK: 2 Dh operations each per query row and key)."""
+    b, h, s, dh = q.shape
+    lens = mask.sum(dim=1)
+    keys = float((lens + (lens == 0) * s).sum())
+    return bound(4 * b * h * s * dh * 2 + 4 * h * keys * dh * 2 + b * s * 4,
+                 10 * h * s * keys * dh, "bf16")
+
+
+def attention_grad_checks(device: str) -> dict:
+    """The autograd route of ``fused_encoder_attention`` (kernel d or e
+    forward, ``reference_attention`` recomputed backward) against
+    ``reference_attention`` differentiated by autograd on the same bf16
+    inputs: the output within ATTN_ATOL + ATTN_RTOL |ref|, dq, dk, dv within
+    GRAD_ATOL + GRAD_RTOL |ref|, the kernel launched once a forward and the
+    recompute counted once a backward. Times (CUDA events): the kernel's
+    forward (and its device time), its plain twin's, the recompute
+    backward, the route's forward and backward, and
+    ``scaled_dot_product_attention`` forward, and forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from codesearch_tpu_torch.examples.ablate_head_packing import cuda_ms
+    from codesearch_tpu_torch.ops import attention as att
+
+    out = {}
+    for i, (name, b, h, s, dh, shape) in enumerate(GRAD_CASES):
+        q, k, v, mask = attention_inputs(b, h, s, dh, seed=200 + i, device=device)
+        g = torch.randn(q.shape, generator=torch.Generator(device=device).manual_seed(i),
+                        device=device).to(torch.bfloat16)
+        leaves, ref_leaves = ([t.clone().requires_grad_(True) for t in (q, k, v)]
+                              for _ in range(2))
+        launches, recomputes = att.launch_counts[name], att.composed_counts["backward"]
+        got = att.fused_encoder_attention(*leaves, mask)
+        check(att.launch_counts[name] == launches + 1,
+              f"the autograd route at {shape} did not launch {name} once")
+        got.backward(g)
+        check(att.composed_counts["backward"] == recomputes + 1,
+              f"the autograd route's backward at {shape} was not counted once")
+        ref = att.reference_attention(*ref_leaves, mask)
+        ref.backward(g)
+        torch.cuda.synchronize()
+        err, _, ok = compare_attention(got.detach(), ref.detach())
+        grad_err, grad_ok = {}, True
+        for gname, a, w in zip(("dq", "dk", "dv"), leaves, ref_leaves):
+            diff = (a.grad.float() - w.grad.float()).abs()
+            grad_err[gname] = float(diff.max())
+            grad_ok &= bool((diff <= GRAD_ATOL + GRAD_RTOL * w.grad.float().abs()).all()
+                            and torch.isfinite(a.grad).all())
+        log(f"autograd route {name} {shape}: max |out - reference| {err} (tol {ATTN_ATOL} + "
+            f"{ATTN_RTOL}|ref|), max |grad - reference's| {grad_err} (tol {GRAD_ATOL} + "
+            f"{GRAD_RTOL}|ref|)")
+        check(ok and grad_ok, f"the autograd route disagrees with reference_attention at {shape}")
+        kern = getattr(att, name)
+        fwd = lambda: kern(q, k, v, mask)  # noqa: E731
+
+        def recompute():
+            with torch.enable_grad():
+                torch.autograd.grad(att.reference_attention(*leaves, mask), leaves, g)
+
+        def route():
+            torch.autograd.grad(att.fused_encoder_attention(*leaves, mask), leaves, g)
+
+        bias = ((1.0 - mask.float()) * -1e30)[:, None, None, :].to(torch.bfloat16)
+
+        def sdpa():
+            torch.autograd.grad(F.scaled_dot_product_attention(*leaves, attn_mask=bias),
+                                leaves, g)
+
+        plain = getattr(att, name + "_plain")
+        row = {"shape": shape, "forward_ms": cuda_ms(fwd, reps=10),
+               "forward_device_ms": device_ms(fwd),
+               "plain_forward_ms": cuda_ms(lambda: plain(q, k, v, mask), reps=10),
+               "sdpa_forward_ms": sdpa_ms(q, k, v, mask),
+               "backward_recompute_ms": cuda_ms(recompute, reps=10),
+               "route_forward_backward_ms": cuda_ms(route, reps=10),
+               "sdpa_forward_backward_ms": cuda_ms(sdpa, reps=10),
+               **attention_bound(q, mask),
+               "backward_bound_ms": attention_backward_bound(q, mask)["bound_ms"],
+               "max_abs_err": err, "max_grad_err": max(grad_err.values())}
+        log(f"time autograd route {name} {shape}: {json.dumps(row)}")
+        out.setdefault(name, []).append(row)
+        del q, k, v, mask, g, leaves, ref_leaves, got, ref
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2168,6 +2289,332 @@ def encoder_family(work: Path, device: str) -> dict:
             "launches": launches, "d_at_rotary_shapes": d_times}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_EPOCHS = 3            # `train --epochs` (the CLI's default is 15)
+TRAIN_LOSS_RTOL = 1e-3      # per-epoch losses, the card against the CPU
+TABLE_EQUAL_MIN = 0.99      # equal bf16 entries in the rows either run touched
+TRAIN_QUERIES = ["exact cosine top-k over the corpus", "return the tensor on the device",
+                 "parse the config and return it", "self tensor shape dtype",
+                 "train the hash table on mined pairs", "cross encoder pair scores",
+                 "kernel launch counts", "torch float device return self"]
+CONTRASTIVE_BATCH = 64
+CONTRASTIVE_LEN = 128
+CONTRASTIVE_STEPS = 10
+STEP_LOSS_RTOL = 1e-2       # one contrastive step, the card against the CPU
+STEP_GRAD_COS_MIN = 0.99    # its gradients, per parameter
+
+
+def _force_device_routes(session) -> None:
+    """The small index of the port's sources would take the host paths (few
+    rows, few documents); these knobs (the tests' own) send its searches
+    through the device routes: kernel a over the corpus, the dense BM25
+    leg (kernel c) for terms in more than 64 chunks."""
+    session.store.host_path_rows = 0
+    session.fts.device_min_docs = 1
+    session.fts.plane_df_floor = 64
+
+
+def _platform(device: str) -> list:
+    """The CLI's device arguments: none for the card (its default)."""
+    return ["--platform", "cpu"] if device == "cpu" else []
+
+
+def _searches(db: Path, device: str, limit: int) -> list:
+    from codesearch_tpu_torch.search import SearchOptions, SearchSession
+
+    session = SearchSession(db, device=device)
+    _force_device_routes(session)
+    return [session.search(q, SearchOptions(limit=limit)) for q in TRAIN_QUERIES]
+
+
+def _mined(db: Path, device: str) -> list:
+    from codesearch_tpu_torch.train.data import mine_pairs
+    from codesearch_tpu_torch.vectordb import VectorStore
+
+    store = VectorStore(db, dims=DIMS, readonly=True, device=device)
+    return mine_pairs([m for _, m in store.iter_chunks()])
+
+
+def train_hash_phase(work: Path, device: str) -> dict:
+    """11a: ``codesearch-torch train`` (the CLI in this process) on phase
+    4's index of the port's sources, on the card, and with ``--platform
+    cpu`` on a copy of that index: per-epoch losses within TRAIN_LOSS_RTOL,
+    the saved tables' bf16 entries equal in TABLE_EQUAL_MIN of the touched
+    rows, the same searches' hits alike off near-ties, and kernels a and c
+    launched by the searches over the re-indexed corpus."""
+    import numpy as np
+
+    from codesearch_tpu_torch.cli.main import main as cli
+    from codesearch_tpu_torch.models import hash_embedder as he
+    from codesearch_tpu_torch.train import hash_finetune
+
+    db, db_cpu = work / "self-db-code-hash-384", work / "self-db-cpu"
+    shutil.copytree(db, db_cpu)
+    src = str(ROOT / "codesearch_tpu_torch")
+    losses: list = []
+    finetune = hash_finetune.finetune_table
+
+    def recorded(*args, **kw):          # the CLI's losses, epoch by epoch
+        table, epoch_losses = finetune(*args, **kw)
+        losses.append(epoch_losses)
+        return table, epoch_losses
+
+    hash_finetune.finetune_table = recorded
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli(["-q", *_platform(device), "--store", str(db), "train", src,
+                  "--epochs", str(TRAIN_EPOCHS)])
+        t1 = time.perf_counter()
+        train_counts = launch_counts()
+        rc_cpu = cli(["-q", "--platform", "cpu", "--store", str(db_cpu), "train", src,
+                      "--epochs", str(TRAIN_EPOCHS)])
+        t2 = time.perf_counter()
+    finally:
+        hash_finetune.finetune_table = finetune
+    check(rc == 0 and rc_cpu == 0, f"train exited {rc} on {device}, {rc_cpu} on the CPU")
+    gpu_l, cpu_l = (np.array(ls) for ls in losses)
+    loss_rel = float(np.abs(gpu_l - cpu_l).max() / np.abs(cpu_l).min())
+    default = he.make_table(DIMS, device="cpu").float().numpy()
+    got = he.load_table_host(db / "hash_table.npz", DIMS)
+    want = he.load_table_host(db_cpu / "hash_table.npz", DIMS)
+    touched = (got != default).any(axis=1) | (want != default).any(axis=1)
+    equal_share = float((got[touched] == want[touched]).mean())
+    reset_counts()
+    with PlainCalls() as plain:
+        hits = _searches(db, device, 10)
+        search_counts = launch_counts()
+    ref = _searches(db_cpu, "cpu", 11)
+    mismatches = sum(ranked_alike(g.hits, w.hits, 1e-4) for g, w in zip(hits, ref))
+    out = {"pairs": len(_mined(db_cpu, "cpu")), "epochs": TRAIN_EPOCHS,
+           "losses": gpu_l.tolist(), "cpu_losses": cpu_l.tolist(), "loss_max_rel_err": loss_rel,
+           "touched_rows": int(touched.sum()), "table_equal_share": equal_share,
+           "train_and_reindex_s": t1 - t0, "cpu_train_and_reindex_s": t2 - t1,
+           "rank_mismatches_off_near_ties": mismatches,
+           "launches": {"train_hash": train_counts, "search_after_train": search_counts},
+           "plain_calls": dict(plain.calls)}
+    log(f"phase 11a train (code-hash-384): {json.dumps(out)}")
+    check(bool(np.isfinite(gpu_l).all()) and loss_rel <= TRAIN_LOSS_RTOL,
+          f"train's losses on {device} are not the CPU's: {gpu_l} against {cpu_l}")
+    check(touched.any() and equal_share >= TABLE_EQUAL_MIN,
+          f"the trained tables agree in {equal_share:.4f} of the touched rows' entries")
+    check(mismatches == 0, "the searches after train rank unlike the CPU session's")
+    if device == "cuda":
+        check(search_counts["fused_cosine_topk"] >= len(TRAIN_QUERIES)
+              and search_counts["fused_scores_topk"] > 0,
+              f"the searches after train did not launch kernels a and c: {search_counts}")
+        check(not plain.calls, f"plain versions ran in the searches: {dict(plain.calls)}")
+    return out
+
+
+def train_cross_encoder_phase(work: Path, device: str) -> dict:
+    """11b: ``train --cross-encoder`` (one epoch, the CLI in this process)
+    on the same index, then ``search --rerank --json`` through the CLI:
+    ``rerank_mode`` ``cross-encoder`` from ``local-cross-encoder``, kernel
+    d in the training forwards (one a layer a step, its backward
+    recomputed as often) and in the pair forwards, and the reranked hits of
+    a GPU session alike a CPU session's off near-ties."""
+    import contextlib
+    import io
+
+    from codesearch_tpu_torch.cli.main import main as cli
+    from codesearch_tpu_torch.search import SearchOptions, SearchSession
+    from codesearch_tpu_torch.train.cross_encoder_train import LOCAL_CE_NAME, SMALL_CE_CFG
+
+    db, src = work / "self-db-code-hash-384", str(ROOT / "codesearch_tpu_torch")
+    reset_counts()
+    t0 = time.perf_counter()
+    with PlainCalls() as plain:
+        rc = cli(["-q", *_platform(device), "--store", str(db), "train", "--cross-encoder", src,
+                  "--epochs", "1"])
+        train_counts = route_counts()
+    train_s = time.perf_counter() - t0
+    train_seq = d_launches_by_seq()
+    check(rc == 0, f"train --cross-encoder exited {rc}")
+    steps = train_counts["composed_backward"] // SMALL_CE_CFG.layers
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli([*_platform(device), "--store", str(db), "search", TRAIN_QUERIES[0], src,
+                  "--rerank", "--json", "--limit", "5"])
+    check(rc == 0, f"search --rerank exited {rc}")
+    cli_mode = json.loads(printed.getvalue())["rerank_mode"]
+    gpu, cpu = SearchSession(db, device=device), SearchSession(db, device="cpu")
+    for session in (gpu, cpu):
+        _force_device_routes(session)
+    reset_counts()
+    got = [gpu.search(q, SearchOptions(limit=10, rerank=True)) for q in TRAIN_QUERIES]
+    rerank_counts = route_counts()
+    want = [cpu.search(q, SearchOptions(limit=11, rerank=True)) for q in TRAIN_QUERIES]
+    mismatches = sum(ranked_alike(g.hits, w.hits, RERANK_TOL) for g, w in zip(got, want))
+    out = {"train_s": train_s, "steps": steps, "cli_rerank_mode": cli_mode,
+           "model": gpu.reranker.model.name, "rank_mismatches_off_near_ties": mismatches,
+           "rerank_ms_p50": statistics.median(g.timings_ms["rerank"] for g in got),
+           "d_launches_by_seq": {"training": train_seq, "rerank": d_launches_by_seq()},
+           "launches": {"train_cross_encoder": train_counts, "rerank_after_train": rerank_counts},
+           "plain_calls": dict(plain.calls)}
+    log(f"phase 11b train --cross-encoder: {json.dumps(out)}")
+    check(cli_mode == "cross-encoder" and gpu.reranker.model.name == LOCAL_CE_NAME
+          and all(g.rerank_mode == "cross-encoder" == w.rerank_mode for g, w in zip(got, want)),
+          "search --rerank did not run the trained local cross-encoder")
+    check(mismatches == 0, "the reranked hits after train --cross-encoder differ from the CPU's")
+    if device == "cuda":
+        check(steps > 0 and train_counts["attention_full"] == SMALL_CE_CFG.layers * steps
+              and train_counts["composed_backward"] == train_counts["attention_full"],
+              f"train --cross-encoder: d {train_counts['attention_full']}, recomputes "
+              f"{train_counts['composed_backward']} for {steps} steps")
+        check(dict(plain.calls) == {"reference_attention": train_counts["composed_backward"]},
+              f"plain versions in train --cross-encoder: {dict(plain.calls)}")
+        check(rerank_counts["attention_full"] == SMALL_CE_CFG.layers * len(TRAIN_QUERIES),
+              f"the reranked searches launched d {rerank_counts['attention_full']} times")
+    return out
+
+
+def d_launches_by_seq() -> dict:
+    """Kernel d's launches since the last reset, by sequence length."""
+    from codesearch_tpu_torch.ops import attention as att
+
+    return {f"S={s}": c for (k, s), c in sorted(att.launches_by_seq.items())
+            if k == "attention_full"}
+
+
+def _grad_cosines(a, b) -> dict:
+    """Cosine of two models' gradients, parameter by parameter."""
+    pb = dict(b.named_parameters())
+    out = {}
+    for name, p in a.named_parameters():
+        x, y = p.grad.double().cpu().ravel(), pb[name].grad.double().cpu().ravel()
+        out[name] = float(x @ y / (x.norm() * y.norm()).clamp(min=1e-300))
+    return out
+
+
+def contrastive_phase(work: Path, device: str) -> dict:
+    """11c: InfoNCE steps on bge-small as registered (12 layers, 384, 12
+    heads of 32, its init from seed 0), batch 64 of mined pairs at
+    ``max_len`` 128. One step held to the same step on the CPU (loss within
+    STEP_LOSS_RTOL, gradients at cosine STEP_GRAD_COS_MIN per parameter),
+    then CONTRASTIVE_STEPS timed steps: step ms (median), tokens/s, peak
+    memory, kernel d 24 times a step (12 layers, queries and documents)
+    and as many recomputes in the backward, no other plain version; a
+    profiled pair of steps for the device time of d, of the backward
+    recomputes and of the optimizer; the first batch's loss lower after the
+    steps."""
+    import itertools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from codesearch_tpu_torch.models import parse_model
+    from codesearch_tpu_torch.models.tokenizer import load_tokenizer
+    from codesearch_tpu_torch.train.contrastive import (info_nce_loss, make_train_state,
+                                                        make_train_step)
+    from codesearch_tpu_torch.train.data import batches
+
+    cfg = parse_model(BERT_MODEL).arch
+    tok = load_tokenizer(None, lowercase=True, max_len=CONTRASTIVE_LEN, vocab_size=cfg.vocab_size)
+    pairs = _mined(work / "self-db-code-hash-384", "cpu")
+    data = list(itertools.islice(batches(pairs, tok, CONTRASTIVE_BATCH, CONTRASTIVE_LEN, seed=0),
+                                 CONTRASTIVE_STEPS + 3))
+    check(len(data) == CONTRASTIVE_STEPS + 3, f"only {len(data)} batches of mined pairs")
+    model, opt = make_train_state(cfg, device=device, seed=0)
+    ref_model, ref_opt = make_train_state(cfg, device="cpu", seed=0)
+    step, ref_step = make_train_step(cfg, opt), make_train_step(cfg, ref_opt)
+    t0 = time.perf_counter()
+    loss0 = float(step(model, data[0]))
+    t1 = time.perf_counter()
+    ref_loss0 = float(ref_step(ref_model, data[0]))
+    cpu_step_s = time.perf_counter() - t1
+    cos = _grad_cosines(model, ref_model)
+    worst = min(cos, key=cos.get)
+    del ref_model, ref_opt
+
+    def batch_loss(batch) -> float:
+        with torch.no_grad():
+            return float(info_nce_loss(model, {k: torch.as_tensor(v).to(model.device)
+                                               for k, v in batch.items()}))
+
+    before = batch_loss(data[1])
+    _sync(device)
+    _peak_reset(device)
+    reset_counts()
+    times, losses = [], []
+    with PlainCalls() as plain:
+        for batch in data[1:CONTRASTIVE_STEPS + 1]:
+            _sync(device)
+            t = time.perf_counter()
+            losses.append(float(step(model, batch)))
+            times.append((time.perf_counter() - t) * 1000)
+        counts = route_counts()
+    peak_mb = _peak_mb(device)
+    after = batch_loss(data[1])
+    tokens = [int(b["query_mask"].sum() + b["doc_mask"].sum())
+              for b in data[1:CONTRASTIVE_STEPS + 1]]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for batch in data[CONTRASTIVE_STEPS + 1:]:
+            step(model, batch)
+        _sync(device)
+    busy_ms, top = device_kernel_time(prof)
+    rows = prof.key_averages()
+
+    def device_ms_of(pred, self_only: bool) -> float:
+        return sum((e.self_device_time_total if self_only else e.device_time_total)
+                   for e in rows if pred(e.key)) / 1000 / 2
+
+    prof_ms = {"d_forward": device_ms_of(lambda k: "attention_two_sweep" in k, True),
+               "backward_recompute": device_ms_of(lambda k: "KernelAttentionBackward" in k
+                                                  and "evaluate_function" in k, False),
+               "optimizer": device_ms_of(lambda k: k.startswith("Optimizer.step"), False),
+               "step_total": busy_ms / 2}
+    out = {"model": BERT_MODEL, "batch": CONTRASTIVE_BATCH, "max_len": CONTRASTIVE_LEN,
+           "first_step": {"loss": loss0, "cpu_loss": ref_loss0,
+                          "loss_rel_err": abs(loss0 - ref_loss0) / abs(ref_loss0),
+                          "min_grad_cosine": cos[worst], "min_grad_cosine_param": worst,
+                          "card_s": t1 - t0, "cpu_s": cpu_step_s},
+           "step_ms_median": statistics.median(times), "step_ms": times,
+           "tokens_per_s": sum(tokens) / (sum(times) / 1000),
+           "padded_tokens_per_s": len(times) * 2 * CONTRASTIVE_BATCH * CONTRASTIVE_LEN
+           / (sum(times) / 1000),
+           "peak_mb": peak_mb, "losses": losses, "held_batch_loss": [before, after],
+           "profiled_device_ms_a_step": prof_ms, "top_device_ms": top,
+           "launches": {"contrastive": counts}, "plain_calls": dict(plain.calls)}
+    log(f"phase 11c contrastive steps: {json.dumps(out)}")
+    check(out["first_step"]["loss_rel_err"] <= STEP_LOSS_RTOL
+          and cos[worst] >= STEP_GRAD_COS_MIN,
+          f"the contrastive step on {device} is not the CPU's: loss {loss0} against "
+          f"{ref_loss0}, gradient cosine {cos[worst]} at {worst}")
+    check(all(map(math.isfinite, losses)) and after < before,
+          f"the loss did not fall: {before} -> {after}")
+    if device == "cuda":
+        n = cfg.layers * 2 * CONTRASTIVE_STEPS
+        check(counts["attention_full"] == n and counts["composed_backward"] == n
+              and counts["attention_flash"] == 0,
+              f"contrastive steps: d {counts['attention_full']}, recomputes "
+              f"{counts['composed_backward']} (want {n} each)")
+        check(dict(plain.calls) == {"reference_attention": n},
+              f"plain versions in the contrastive steps: {dict(plain.calls)}")
+        check(prof_ms["d_forward"] > 0, "the profiler saw no time of kernel d")
+    return out
+
+
+def training(work: Path, device: str) -> dict:
+    """Phase 11: 11a, 11b and 11c in turn, with their seconds."""
+    t0 = time.perf_counter()
+    hashed = train_hash_phase(work, device)
+    t1 = time.perf_counter()
+    ce = train_cross_encoder_phase(work, device)
+    t2 = time.perf_counter()
+    contrastive = contrastive_phase(work, device)
+    t3 = time.perf_counter()
+    seconds = {"train": t1 - t0, "train_cross_encoder": t2 - t1, "contrastive": t3 - t2,
+               "total": t3 - t0}
+    log(f"phase 11 seconds: {seconds}")
+    launches = {**hashed.pop("launches"), **ce.pop("launches"), **contrastive.pop("launches")}
+    return {"train": hashed, "train_cross_encoder": ce, "contrastive": contrastive,
+            "seconds": seconds, "launches": launches}
+
+
 def nvidia_smi_line() -> str:
     try:
         proc = subprocess.run(
@@ -2221,6 +2668,7 @@ def main() -> int:
                 log("  " + line.strip())
         timing = kernel_checks("cuda")
         timing.update(attention_checks("cuda"))
+        grads = attention_grad_checks("cuda")
         repo_index_and_cli(work, "cuda")
         synthetic_session(work, N_ROWS, "cuda", cpu_check=True)
         from codesearch_tpu_torch.ops import attention as att
@@ -2235,14 +2683,21 @@ def main() -> int:
         served = serving(work, "cuda")
         family = encoder_family(work, "cuda")
         log(f"phase 10 results ({smi}): {json.dumps(family, default=str)}")
+        trained = training(work, "cuda")
+        log(f"phase 11 results ({smi}): {json.dumps(trained, default=str)}")
         timing["attention_full"]["rotary_shapes"] = family["d_at_rotary_shapes"]
+        timing["attention_full"]["training_shapes"] = grads["attention_full"]
+        timing["attention_flash"]["training_shapes"] = grads["attention_flash"]
         kernels = []
         # launches: phase 7's counted paths, bge-small's index, its bf16 and
         # int8 queries (the "search" route) and the direct S=2048 call of the
         # encoder attention that only e serves (the "direct" route), phase
         # 9's (the waves, MCP, HTTP) and phase 10's (Nomic, ModernBERT,
-        # rerank), each counted on its own
-        paths = {**bert["launches"], **served["launches"], **family["launches"]}
+        # rerank) and phase 11's (train and the searches after it, train
+        # --cross-encoder and the reranked searches, the contrastive steps),
+        # each counted on its own
+        paths = {**bert["launches"], **served["launches"], **family["launches"],
+                 **trained["launches"]}
         for name, via in (("fused_cosine_topk", "search"), ("fused_cosine_topk_int8", "search"),
                           ("fused_scores_topk", "search"), ("attention_full", "search"),
                           ("attention_flash", "direct")):

@@ -1,8 +1,10 @@
 """Command line of the port: ``python -m codesearch_tpu_torch.cli`` (or
 ``codesearch-torch``). It takes the JAX CLI's arguments; ``index``,
-``search``, ``mcp`` (the MCP stdio server) and ``serve`` (the HTTP server)
-run on torch, every other subcommand exits 2 as not yet ported.
-``--platform cpu`` runs on the CPU; otherwise the first CUDA device."""
+``search``, ``mcp`` (the MCP stdio server), ``serve`` (the HTTP server),
+``train`` (the hash table's fine-tuning, then a re-index) and ``train
+--cross-encoder`` (the local reranker) run on torch, every other subcommand
+exits 2 as not yet ported. ``--platform cpu`` runs on the CPU; otherwise
+the first CUDA device."""
 
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from ..utils import constants
 from ..utils.logger import init_logger
 from ..utils.output import error_print, info_print, result_print, set_quiet
 
-PORTED = ("index", "search", "mcp", "serve")
+PORTED = ("index", "search", "mcp", "serve", "train")
 
 
 def _install_sigint() -> None:
@@ -186,9 +188,7 @@ def main(argv: list[str] | None = None) -> int:
         parser.print_help(sys.stderr)
         return 2
     if args.command not in PORTED:
-        what = "train --cross-encoder" if getattr(args, "cross_encoder", False) \
-            else args.command
-        error_print(f"`{what}` is not yet ported to the torch package "
+        error_print(f"`{args.command}` is not yet ported to the torch package "
                     "(ROADMAP.md Queue 1); the JAX CLI `codesearch` has it")
         return 2
     set_quiet(args.quiet)
@@ -209,6 +209,8 @@ def main(argv: list[str] | None = None) -> int:
 
             return serve(Path(args.path), host=args.host, port=args.port,
                          initial_index=not args.no_create_index, device=device)
+        if args.command == "train":
+            return _cmd_train(args, device)
         return _cmd_index(args, device)
     except KeyboardInterrupt:
         return 130
@@ -330,3 +332,97 @@ def _cmd_index(args, device) -> int:
     info_print(f"indexed {stats.files_indexed} files ({stats.chunks_added} chunks) "
                f"in {stats.elapsed_s:.1f}s — db: {stats.db_path}")
     return 130 if stats.cancelled else 0
+
+
+def _train_db(args):
+    """The index ``train`` reads: ``--store`` or the one found from the
+    path (None after printing why)."""
+    from ..index import resolve_database_with_message
+
+    if args.store is not None:
+        return Path(args.store)
+    db, msg = resolve_database_with_message(Path(args.path))
+    if db is None:
+        error_print(msg)
+    return db
+
+
+def _mined_pairs(db: Path, meta: dict, device) -> list:
+    from ..models import parse_model
+    from ..train.data import mine_pairs
+    from ..vectordb import VectorStore
+
+    spec = parse_model(meta.get("model", "code-hash-384"))
+    dims = int(meta.get("dimensions", spec.dims if spec else 384))
+    store = VectorStore(db, dims=dims, readonly=True, int8=bool(meta.get("int8", False)),
+                        device=device)
+    return mine_pairs([m for _, m in store.iter_chunks()])
+
+
+def _cmd_train(args, device) -> int:
+    """Fine-tune the hash table on pairs mined from the index, save it as
+    ``<db>/hash_table.npz``, drop the file manifest and re-index with the
+    trained table; with ``--cross-encoder``, train and install the local
+    reranker instead."""
+    from ..index import IndexOptions, index, read_metadata
+    from ..models import parse_model
+    from ..utils.constants import FILE_META_DB_NAME
+
+    db = _train_db(args)
+    if db is None:
+        return 1
+    meta = read_metadata(db)
+    if args.cross_encoder:
+        return _cmd_train_cross_encoder(args, db, meta, device)
+    spec = parse_model(meta.get("model", "code-hash-384"))
+    if spec is None or spec.kind != "hash":
+        error_print(
+            f"train currently supports the hash models; index uses {meta.get('model')!r} "
+            "(BERT-family fine-tuning: use codesearch_tpu_torch.train.contrastive)")
+        return 1
+    pairs = _mined_pairs(db, meta, device)
+    if len(pairs) < 16:
+        error_print(f"only {len(pairs)} training pairs mined — index more code first")
+        return 1
+    from ..models.hash_embedder import make_table, save_table
+    from ..train.hash_finetune import finetune_table
+
+    info_print(f"fine-tuning on {len(pairs)} mined pairs ({args.epochs} epochs)")
+    trained, losses = finetune_table(make_table(spec.dims, device=device), pairs,
+                                     epochs=args.epochs, learning_rate=args.lr)
+    if not losses:
+        error_print("training produced no steps")
+        return 1
+    save_table(trained, db / "hash_table.npz")
+    info_print(f"loss {losses[0]:.4f} → {losses[-1]:.4f}; re-embedding corpus")
+    # drop the manifest so every file re-embeds with the trained table
+    (db / FILE_META_DB_NAME).unlink(missing_ok=True)
+    stats = index(args.path, IndexOptions(model=spec.short_name, quiet=args.quiet,
+                                          store_path=args.store), device=device)
+    info_print(f"re-indexed {stats.files_indexed} files ({stats.chunks_added} chunks) "
+               f"with the trained table")
+    return 0
+
+
+def _cmd_train_cross_encoder(args, db: Path, meta: dict, device) -> int:
+    """``train --cross-encoder``: train and install the local reranker, so
+    ``search --rerank`` runs a real cross-encoder with no download."""
+    from ..train.cross_encoder_train import train_and_export
+    from ..utils.constants import get_global_models_cache_dir
+
+    pairs = _mined_pairs(db, meta, device)
+    if len(pairs) < 16:
+        error_print(f"only {len(pairs)} training pairs mined — index more code first")
+        return 1
+    epochs = max(1, min(args.epochs, 10))
+    info_print(f"training local cross-encoder on {len(pairs)} mined pairs ({epochs} epochs)")
+    out, losses = train_and_export(
+        pairs, get_global_models_cache_dir(), epochs=epochs, device=device,
+        on_epoch=lambda e, n, ls: info_print(f"  epoch {e}/{n}: loss {ls:.4f}"))
+    if not losses:
+        error_print("training produced no steps")
+        return 1
+    info_print(f"loss {losses[0]:.4f} → {losses[-1]:.4f}; installed at {out}")
+    info_print("`codesearch-torch search --rerank ...` now runs the real "
+               "cross-encoder (rerank_mode=cross-encoder)")
+    return 0

@@ -20,8 +20,17 @@ and ``sin`` rounded to bf16, the linear layers are ``torch.matmul`` (XLA ran
 them outside any kernel) and every layer's attention is
 ``ops.attention.fused_encoder_attention``: kernels d and e on CUDA, the
 composed ``reference_attention`` for windowed and ALiBi layers (JAX has no
-kernel for them either). CLS or masked-mean pooling, then an L2 norm. The
-forward runs under ``torch.inference_mode()``.
+kernel for them either). CLS or masked-mean pooling, then an L2 norm.
+
+Two forms share the layers. The inference form (the default) holds the
+dense weights as bf16 buffers and runs under ``torch.inference_mode()``.
+The trainable form (``trainable=True``) holds every weight as an f32
+``nn.Parameter`` (the master weights), casts the dense ones to bf16 inside
+each forward as the JAX forward does, keeps the norms f32 and runs with
+grad: the attention then takes ``fused_encoder_attention``'s autograd route
+(kernel d or e forward, ``reference_attention`` recomputed backward).
+``to_params()`` gives the JAX package's parameter tree back, with a BERT
+layer's fused QKV split into ``q_w``/``k_w``/``v_w`` again.
 
 Weights come as the JAX package's parameter tree of numpy arrays, from one
 of three places:
@@ -36,6 +45,7 @@ of three places:
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 from pathlib import Path
@@ -323,18 +333,41 @@ def _apply_rope(x: torch.Tensor, rope) -> torch.Tensor:
     return (xf * cos + torch.cat([-x2, x1], dim=-1) * sin).to(x.dtype)
 
 
+def _is_dense(name: str) -> bool:
+    return name.endswith(("_w", "_b"))
+
+
+def _register(module: nn.Module, name: str, arr, device, trainable: bool,
+              dtype=torch.float32) -> None:
+    """``arr`` as an f32 parameter (``trainable``) or a buffer of ``dtype``."""
+    t = torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(device)
+    if trainable:
+        module.register_parameter(name, nn.Parameter(t))
+    else:
+        module.register_buffer(name, t.to(dtype))
+
+
 class _Layer(nn.Module):
     """Dense weights (``*_w``, ``*_b``) as bf16 buffers (the JAX forward casts
-    each to the activation dtype), norm parameters as f32."""
+    each to the activation dtype), norm parameters as f32; trainable, every
+    weight an f32 parameter and the dense ones cast in ``weights()``."""
 
-    def __init__(self, cfg: ArchConfig, p: dict, device):
+    def __init__(self, cfg: ArchConfig, p: dict, device, trainable: bool = False):
         super().__init__()
         self.heads = cfg.heads
         self.eps = cfg.layer_norm_eps
+        self.trainable = trainable
         for name, arr in p.items():
-            dtype = torch.bfloat16 if name.endswith(("_w", "_b")) else torch.float32
-            t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
-            self.register_buffer(name, t.to(device=device, dtype=dtype))
+            _register(self, name, arr, device, trainable,
+                      torch.bfloat16 if _is_dense(name) else torch.float32)
+
+    def weights(self) -> dict:
+        """The forward's weights by name: the buffers as they are, or the f32
+        parameters with the dense ones cast to bf16."""
+        if not self.trainable:
+            return self._buffers
+        return {name: p.to(torch.bfloat16) if _is_dense(name) else p
+                for name, p in self._parameters.items()}
 
     def _heads(self, qkv: torch.Tensor, rope=None):
         """q, k, v [B, H, S, Dh] of a fused [B, S, 3h] projection: strided
@@ -355,22 +388,23 @@ class _BertLayer(_Layer):
     """One post-norm BERT layer (``_encoder_layer``): fused biased QKV,
     GELU MLP; ``bias2d`` is the ALiBi bias of an ALiBi model."""
 
-    def __init__(self, cfg: ArchConfig, p: dict, device):
+    def __init__(self, cfg: ArchConfig, p: dict, device, trainable: bool = False):
         fused = {"qkv_w": np.concatenate([p["q_w"], p["k_w"], p["v_w"]], axis=1),
                  "qkv_b": np.concatenate([p["q_b"], p["k_b"], p["v_b"]])}
         rest = {k: v for k, v in p.items() if k[:2] not in ("q_", "k_", "v_")}
-        super().__init__(cfg, {**fused, **rest}, device)
+        super().__init__(cfg, {**fused, **rest}, device, trainable)
 
     def forward(self, x: torch.Tensor, maskf: torch.Tensor, bias2d=None) -> torch.Tensor:
         b, s, h = x.shape
-        q, k, v = self._heads(torch.matmul(x, self.qkv_w) + self.qkv_b)
+        w = self.weights()
+        q, k, v = self._heads(torch.matmul(x, w["qkv_w"]) + w["qkv_b"])
         attn = fused_encoder_attention(q, k, v, maskf, bias2d=bias2d)
         attn = attn.transpose(1, 2).reshape(b, s, h)
-        attn = torch.matmul(attn, self.o_w) + self.o_b
-        x = _layer_norm(x + attn, self.attn_ln_scale, self.attn_ln_bias, self.eps)
-        mlp = F.gelu(torch.matmul(x, self.mlp_in_w) + self.mlp_in_b)
-        mlp = torch.matmul(mlp, self.mlp_out_w) + self.mlp_out_b
-        return _layer_norm(x + mlp, self.mlp_ln_scale, self.mlp_ln_bias, self.eps)
+        attn = torch.matmul(attn, w["o_w"]) + w["o_b"]
+        x = _layer_norm(x + attn, w["attn_ln_scale"], w["attn_ln_bias"], self.eps)
+        mlp = F.gelu(torch.matmul(x, w["mlp_in_w"]) + w["mlp_in_b"])
+        mlp = torch.matmul(mlp, w["mlp_out_w"]) + w["mlp_out_b"]
+        return _layer_norm(x + mlp, w["mlp_ln_scale"], w["mlp_ln_bias"], self.eps)
 
 
 class _NomicLayer(_Layer):
@@ -379,14 +413,15 @@ class _NomicLayer(_Layer):
 
     def forward(self, x: torch.Tensor, maskf: torch.Tensor, rope) -> torch.Tensor:
         b, s, h = x.shape
-        q, k, v = self._heads(torch.matmul(x, self.qkv_w), rope)
+        w = self.weights()
+        q, k, v = self._heads(torch.matmul(x, w["qkv_w"]), rope)
         attn = fused_encoder_attention(q, k, v, maskf)
-        attn = torch.matmul(attn.transpose(1, 2).reshape(b, s, h), self.out_w)
-        x = _layer_norm(x + attn, self.norm1_scale, self.norm1_bias, self.eps)
-        y = torch.matmul(x, self.fc11_w)
-        gate = torch.matmul(x, self.fc12_w)
-        mlp = torch.matmul(y * F.silu(gate), self.fc2_w)
-        return _layer_norm(x + mlp, self.norm2_scale, self.norm2_bias, self.eps)
+        attn = torch.matmul(attn.transpose(1, 2).reshape(b, s, h), w["out_w"])
+        x = _layer_norm(x + attn, w["norm1_scale"], w["norm1_bias"], self.eps)
+        y = torch.matmul(x, w["fc11_w"])
+        gate = torch.matmul(x, w["fc12_w"])
+        mlp = torch.matmul(y * F.silu(gate), w["fc2_w"])
+        return _layer_norm(x + mlp, w["norm2_scale"], w["norm2_bias"], self.eps)
 
 
 class _ModernBertLayer(_Layer):
@@ -394,51 +429,72 @@ class _ModernBertLayer(_Layer):
     layer 0's attention), bias-free, rotary, windowed attention on local
     layers, GeGLU ``gelu(inp) * gate`` of ``Wi``'s halves in that order."""
 
-    def __init__(self, cfg: ArchConfig, p: dict, device, index: int):
-        super().__init__(cfg, p, device)
+    def __init__(self, cfg: ArchConfig, p: dict, device, index: int, trainable: bool = False):
+        super().__init__(cfg, p, device, trainable)
         self.is_global = index % cfg.global_every == 0
         self.window = 0 if self.is_global else cfg.local_window
         self.first = index == 0
 
     def forward(self, x: torch.Tensor, maskf: torch.Tensor, rope) -> torch.Tensor:
         b, s, h = x.shape
-        xa = x if self.first else _layer_norm(x, self.attn_ln_scale, None, self.eps)
-        q, k, v = self._heads(torch.matmul(xa, self.qkv_w), rope)
+        w = self.weights()
+        xa = x if self.first else _layer_norm(x, w["attn_ln_scale"], None, self.eps)
+        q, k, v = self._heads(torch.matmul(xa, w["qkv_w"]), rope)
         attn = fused_encoder_attention(q, k, v, maskf, window=self.window)
-        x = x + torch.matmul(attn.transpose(1, 2).reshape(b, s, h), self.o_w)
-        xm = _layer_norm(x, self.mlp_ln_scale, None, self.eps)
-        inp, gate = torch.matmul(xm, self.wi_w).chunk(2, dim=-1)
-        return x + torch.matmul(F.gelu(inp) * gate, self.wo_w)
+        x = x + torch.matmul(attn.transpose(1, 2).reshape(b, s, h), w["o_w"])
+        xm = _layer_norm(x, w["mlp_ln_scale"], None, self.eps)
+        inp, gate = torch.matmul(xm, w["wi_w"]).chunk(2, dim=-1)
+        return x + torch.matmul(F.gelu(inp) * gate, w["wo_w"])
 
 
 class BertEncoder(nn.Module):
     """An encoder of any registry family on ``device`` from a parameter tree
-    (see the module docstring for the families and the three sources)."""
+    (see the module docstring for the families, the two forms and the three
+    sources)."""
 
-    def __init__(self, cfg: ArchConfig, params: dict, device=None):
+    def __init__(self, cfg: ArchConfig, params: dict, device=None, trainable: bool = False):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.trainable = trainable
         for name, arr in params["embeddings"].items():
-            t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
-            self.register_buffer(f"emb_{name}", t.to(self.device))
-        self.final_ln_scale = None
+            _register(self, f"emb_{name}", arr, self.device, trainable)
         if cfg.arch_style == "modernbert":
-            t = torch.from_numpy(np.ascontiguousarray(params["final_ln_scale"], np.float32))
-            self.final_ln_scale = t.to(self.device)
-            layers = (_ModernBertLayer(cfg, p, self.device, i)
+            _register(self, "final_ln_scale", params["final_ln_scale"], self.device, trainable)
+            layers = (_ModernBertLayer(cfg, p, self.device, i, trainable)
                       for i, p in enumerate(params["layers"]))
         elif cfg.arch_style == "nomic":
-            layers = (_NomicLayer(cfg, p, self.device) for p in params["layers"])
+            layers = (_NomicLayer(cfg, p, self.device, trainable) for p in params["layers"])
         else:
-            layers = (_BertLayer(cfg, p, self.device) for p in params["layers"])
+            layers = (_BertLayer(cfg, p, self.device, trainable) for p in params["layers"])
         self.layers = nn.ModuleList(layers)
 
-    @torch.inference_mode()
+    def _grad_mode(self):
+        """Grad for the trainable form, ``torch.inference_mode()`` otherwise."""
+        return contextlib.nullcontext() if self.trainable else torch.inference_mode()
+
+    def to_params(self) -> dict:
+        """The JAX package's parameter tree of f32 numpy arrays (a BERT
+        layer's fused QKV split into ``q_*``, ``k_*``, ``v_*`` again)."""
+        flat = {}
+        for name, t in (*self.named_buffers(), *self.named_parameters()):
+            arr = t.detach().float().cpu().numpy()
+            name = name.replace("emb_", "embeddings.", 1) if name.startswith("emb_") else name
+            if self.cfg.arch_style == "bert" and name.endswith(("qkv_w", "qkv_b")):
+                for part, block in zip("qkv", np.split(arr, 3, axis=-1)):
+                    flat[name.replace("qkv", part)] = np.ascontiguousarray(block)
+            else:
+                flat[name] = arr
+        return unflatten_params(flat)
+
     def encode_hidden(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                       token_type_ids: torch.Tensor | None = None) -> torch.Tensor:
         """[B, S] ids + mask -> [B, S, hidden] bf16 states."""
+        with self._grad_mode():
+            return self._hidden(input_ids, attention_mask, token_type_ids)
+
+    def _hidden(self, input_ids, attention_mask, token_type_ids):
         cfg = self.cfg
         s = input_ids.shape[1]
         maskf = attention_mask.float()
@@ -473,10 +529,13 @@ class BertEncoder(nn.Module):
             x = layer(x, maskf, bias2d)
         return x
 
-    @torch.inference_mode()
     def encode(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """[B, S] ids + mask -> [B, hidden] L2-normalized f32 embeddings."""
-        x32 = self.encode_hidden(input_ids, attention_mask).float()
+        with self._grad_mode():
+            return self._pooled(input_ids, attention_mask)
+
+    def _pooled(self, input_ids, attention_mask):
+        x32 = self._hidden(input_ids, attention_mask, None).float()
         if self.cfg.pooling == "cls":
             pooled = x32[:, 0, :]
         else:

@@ -108,6 +108,18 @@ def table_from_jax(np_table: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(torch.bfloat16)
 
 
+def save_table(table, path) -> None:
+    """Write a (fine-tuned) table atomically as ``.npz`` with one key,
+    ``table``: f32 values (of a bf16 table: exactly its entries), the
+    format of the JAX package's ``save_table``, so either package loads the
+    other's."""
+    if isinstance(table, torch.Tensor):
+        table = table.detach().float().cpu().numpy()
+    tmp = f"{path}.tmp.npz"  # savez appends .npz only when missing
+    np.savez(tmp, table=np.asarray(table, np.float32))
+    os.replace(tmp, str(path))
+
+
 def _round_bf16_f32(x: np.ndarray) -> np.ndarray:
     """Round float32 to the nearest bf16, kept as float32."""
     return (_bf16_bits(x).astype(np.uint32) << _U32(16)).view(np.float32).reshape(np.shape(x))
@@ -204,7 +216,9 @@ def batch_features(texts: list[str], max_tokens: int = MAX_TOKENS):
 
 def embed_features(table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """[B, T] bucket ids + weights -> [B, d] L2-normalized f32 embeddings:
-    a row gather from the bf16 table, an f32 weighted sum, an L2 norm."""
+    a row gather from the bf16 table, an f32 weighted sum, an L2 norm. An
+    f32 table that requires grad (``train/hash_finetune.py``) gets a dense
+    gradient: the gather's backward adds into a zero table."""
     rows = table[ids.long()].float()                               # [B, T, d]
     vec = torch.bmm(weights.float().unsqueeze(1), rows).squeeze(1)  # [B, d]
     return vec / torch.clamp(torch.linalg.vector_norm(vec, dim=-1, keepdim=True), min=1e-12)

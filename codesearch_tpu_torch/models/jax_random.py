@@ -2,7 +2,8 @@
 
 ``jax.random`` with threefry-2x32 and partitionable counters (JAX's default):
 a key is two uint32 words; ``split(key, n)`` hashes the counters
-``(0, i)`` for ``i < n``; ``normal(key, shape)`` hashes ``(0, i)`` for each
+``(0, i)`` for ``i < n``; ``fold_in(key, d)`` hashes the seed words
+``(0, d)``; ``normal(key, shape)`` hashes ``(0, i)`` for each
 flat index, maps the xor of the two output words to a uniform in
 ``(nextafter(-1, 0), 1)`` and returns ``sqrt(2) * erf_inv(u)`` with the
 float32 ``erf_inv`` that XLA's CPU backend lowers (Giles' polynomial over a
@@ -117,6 +118,16 @@ def _erf_inv_xla(x: np.ndarray) -> np.ndarray:
 def prng_key(seed: int) -> tuple[int, int]:
     """``jax.random.PRNGKey(seed)`` for 0 <= seed < 2**32."""
     return 0, int(seed)
+
+
+def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
+    """``jax.random.fold_in(key, data)`` for 0 <= data < 2**32: threefry of
+    the key over the seed words ``(0, data)`` of ``data``."""
+    if not 0 <= data < 1 << 32:
+        raise ValueError(f"fold_in data {data} is not a uint32")
+    b1, b2 = _threefry2x32(key[0], key[1], np.zeros(1, np.uint32),
+                           np.array([data], np.uint32))
+    return int(b1[0]), int(b2[0])
 
 
 def split(key: tuple[int, int], num: int) -> list[tuple[int, int]]:

@@ -33,9 +33,20 @@ S; ``full_max_seq`` is the route's threshold: ``fused_encoder_attention``
 sends S up to ``FULL_MAX_SEQ[Dh]`` to d and longer sequences to e, and d
 refuses longer ones. The TPU dispatch
 (XLA for S <= 128, d up to 1024, S a multiple of 128) was measured on a TPU
-and is not carried over. The attention backward is not ported: a CUDA
-input with ``requires_grad`` raises. ``launch_counts`` counts kernel
-launches only (``launches_by_seq`` the same launches by sequence length).
+and is not carried over. ``launch_counts`` counts kernel launches only
+(``launches_by_seq`` the same launches by sequence length).
+
+The backward (``_fused_attention_bwd`` of the JAX package) is not a Pallas
+kernel: JAX recomputes the forward through the XLA ``reference_attention``
+and differentiates that. ``fused_encoder_attention`` does the same when q,
+k or v requires grad and grad mode is on: ``KernelAttention``, a
+``torch.autograd.Function``, runs kernel d or e forward (the plain twin on
+the CPU) and saves q, k, v and the mask; its backward recomputes
+``reference_attention`` with grad enabled, one extra forward, and returns
+its gradients (none for the mask). Each recompute on CUDA counts in
+``composed_counts["backward"]``. The kernel wrappers themselves have no
+backward and refuse, on CUDA, inputs that require grad while grad mode is
+on.
 
 Windowed (ModernBERT's local layers) and biased (ALiBi) attention have no
 Pallas kernel: JAX composes them in XLA on every backend. The port runs
@@ -64,8 +75,9 @@ FULL_MAX_SEQ = {32: 1552, 64: 832}
 
 launch_counts = {"attention_full": 0, "attention_flash": 0}
 launches_by_seq: collections.Counter = collections.Counter()   # (kernel, S) -> launches
-# calls of the composed route on CUDA: a call with a bias counts as "bias2d"
-composed_counts = {"window": 0, "bias2d": 0}
+# calls of the composed route on CUDA: a call with a bias counts as "bias2d",
+# a recompute of the autograd route's backward as "backward"
+composed_counts = {"window": 0, "bias2d": 0, "backward": 0}
 
 
 def reset_launch_counts() -> None:
@@ -176,10 +188,10 @@ def _on_cpu(*tensors) -> bool:
 
 
 def _check_cuda_inputs(q, k, v, mask) -> tuple[int, int, int, int]:
-    if any(t.requires_grad for t in (q, k, v)):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "the attention backward is not ported: run the encoder under "
-            "torch.inference_mode() (ROADMAP.md Queue 1)")
+            "the attention kernels have no backward: fused_encoder_attention "
+            "differentiates kernels d and e through its autograd route")
     b, h, s, dh = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
@@ -239,16 +251,46 @@ def attention_flash(q, k, v, mask):
     return o
 
 
+def _kernel_route(q, k, v, mask):
+    """Kernel d up to ``full_max_seq(Dh)``, kernel e beyond."""
+    if q.shape[2] <= full_max_seq(q.shape[3]):
+        return attention_full(q, k, v, mask)
+    return attention_flash(q, k, v, mask)
+
+
+class KernelAttention(torch.autograd.Function):
+    """Kernels d and e under autograd: the forward launches them (grad mode
+    is off inside it), the backward recomputes ``reference_attention`` and
+    differentiates it, as the JAX package's ``custom_vjp`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return _kernel_route(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, mask = ctx.saved_tensors
+        if not _on_cpu(q, k, v, mask):
+            composed_counts["backward"] += 1
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = reference_attention(*inputs, mask)
+            dq, dk, dv = torch.autograd.grad(out, inputs, grad)
+        return dq, dk, dv, None
+
+
 def fused_encoder_attention(q, k, v, mask, window: int = 0, bias2d=None):
     """The encoder's attention: kernel d up to ``full_max_seq(Dh)``, kernel
-    e beyond (CPU tensors take their plain twins). Windowed and biased
+    e beyond (CPU tensors take their plain twins), through ``KernelAttention``
+    when q, k or v requires grad and grad mode is on. Windowed and biased
     attention take ``reference_attention`` on either device, as JAX sends
-    them to its XLA composition on every backend; on CUDA each such call
-    counts in ``composed_counts``."""
+    them to its XLA composition on every backend, and differentiate as they
+    are; on CUDA each such call counts in ``composed_counts``."""
     if window or bias2d is not None:
         if not _on_cpu(q, k, v, mask, bias2d):
             composed_counts["bias2d" if bias2d is not None else "window"] += 1
         return reference_attention(q, k, v, mask, window=window, bias2d=bias2d)
-    if q.shape[2] <= full_max_seq(q.shape[3]):
-        return attention_full(q, k, v, mask)
-    return attention_flash(q, k, v, mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return KernelAttention.apply(q, k, v, mask)
+    return _kernel_route(q, k, v, mask)

@@ -234,20 +234,39 @@ def _bf16(s=64, dh=DH):
     return [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)] + [torch.from_numpy(mask)]
 
 
-@pytest.mark.parametrize("case", ["window", "bias2d", "requires_grad", "f32", "head_size",
-                                  "strides", "beyond_d_bound"])
-def test_cuda_branch_refuses_what_the_kernels_do_not_take(as_if_cuda, case):
+@pytest.mark.parametrize("case", ["window", "bias2d", "requires_grad", "kernel_requires_grad",
+                                  "f32", "head_size", "strides", "beyond_d_bound"])
+def test_cuda_branch_refuses_what_the_kernels_do_not_take(as_if_cuda, monkeypatch, case):
     # window and bias2d have no kernel to refuse them: on CUDA they take the
-    # composed route (reference_attention), counted apart from the launches
+    # composed route (reference_attention), counted apart from the launches;
+    # inputs that require grad take the autograd route: kernel d forward (its
+    # plain twin stands in for the launch here), reference_attention
+    # recomputed backward and counted, gradients equal to the reference's
+    # own; the kernel wrappers alone have no backward and refuse them
     q, k, v, mask = _bf16()
     if case in ("window", "bias2d"):
         kw = {"window": 16} if case == "window" else {"bias2d": ta.alibi_bias(H, 64)}
         got = ta.fused_encoder_attention(q, k, v, mask, **kw)
         assert torch.equal(got, ta.reference_attention(q, k, v, mask, **kw))
-        assert ta.composed_counts == {"window": 0, "bias2d": 0, case: 1}
+        assert ta.composed_counts == {"window": 0, "bias2d": 0, "backward": 0, case: 1}
     elif case == "requires_grad":
-        with pytest.raises(NotImplementedError, match="backward is not ported"):
-            ta.fused_encoder_attention(q.requires_grad_(True), k, v, mask)
+        monkeypatch.setattr(ta, "_launch", lambda entry, *a: ta.attention_full_plain(*a))
+        leaves, ref_leaves = ([t.clone().requires_grad_(True) for t in (q, k, v)]
+                              for _ in range(2))
+        out = ta.fused_encoder_attention(*leaves, mask)
+        assert ta.launch_counts == {"attention_full": 1, "attention_flash": 0}
+        assert ta.composed_counts["backward"] == 0
+        g = torch.from_numpy(np.random.default_rng(8).standard_normal(out.shape)
+                             .astype(np.float32)).to(torch.bfloat16)
+        out.backward(g)
+        assert ta.composed_counts == {"window": 0, "bias2d": 0, "backward": 1}
+        ta.reference_attention(*ref_leaves, mask).backward(g)
+        for got, want in zip(leaves, ref_leaves):
+            assert torch.equal(got.grad, want.grad)
+        ta.reset_launch_counts()
+    elif case == "kernel_requires_grad":
+        with pytest.raises(NotImplementedError, match="no backward"):
+            ta.attention_full(q.requires_grad_(True), k, v, mask)
     elif case == "f32":
         with pytest.raises(TypeError, match="bf16"):
             ta.attention_flash(q.float(), k.float(), v.float(), mask)
@@ -303,6 +322,31 @@ def test_kernels_match_plain_on_cuda(cuda, kernel, s, dh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [128, 2048])
+def test_autograd_route_matches_the_reference_on_cuda(cuda, s):
+    # kernel d (S=128) or e (S=2048) forward, reference_attention recomputed
+    # backward: gradients against reference_attention's own autograd on the
+    # same bf16 inputs within 2e-2 + 2e-2 |ref| (the forwards round their
+    # bf16 outputs in another order; the backwards run the same arithmetic)
+    q, k, v, mask = (t.to(cuda) for t in _bf16(s=s))
+    g = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    kernel = "attention_full" if s <= ta.full_max_seq(DH) else "attention_flash"
+    launches, backward = ta.launch_counts[kernel], ta.composed_counts["backward"]
+    leaves, ref_leaves = ([t.clone().requires_grad_(True) for t in (q, k, v)] for _ in range(2))
+    out = ta.fused_encoder_attention(*leaves, mask)
+    out.backward(g)
+    assert ta.launch_counts[kernel] == launches + 1
+    assert ta.composed_counts["backward"] == backward + 1
+    ref = ta.reference_attention(*ref_leaves, mask)
+    ref.backward(g)
+    np.testing.assert_allclose(out.detach().float().cpu().numpy(),
+                               ref.detach().float().cpu().numpy(), **BF16_TOL)
+    for got, want in zip(leaves, ref_leaves):
+        np.testing.assert_allclose(got.grad.float().cpu().numpy(),
+                                   want.grad.float().cpu().numpy(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
 def test_encoder_attention_takes_strided_views_on_cuda(cuda):
     # the encoder's q, k, v: [B, H, S, Dh] views of one [B, S, 3 * H * Dh] tensor
     b, s, h, dh = 3, 64, 12, 32
@@ -327,4 +371,5 @@ def test_composed_route_is_not_counted_on_the_cpu():
     ta.reset_launch_counts()
     ta.fused_encoder_attention(q, k, v, mask, window=16)
     ta.fused_encoder_attention(q, k, v, mask, bias2d=ta.alibi_bias(H, 64))
-    assert ta.composed_counts == {"window": 0, "bias2d": 0}
+    ta.fused_encoder_attention(q.requires_grad_(True), k, v, mask).sum().backward()
+    assert ta.composed_counts == {"window": 0, "bias2d": 0, "backward": 0}
