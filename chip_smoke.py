@@ -101,15 +101,29 @@ when any phase fails:
 11. training on the card: ``codesearch-torch train`` (in this process) on
    phase 4's index, 3 epochs, against ``--platform cpu`` on a copy (losses
    within 1e-3, the trained tables' bf16 entries equal in 99% of the
-   touched rows, the searches after the re-index ranked alike, kernels a
-   and c launched); ``train --cross-encoder`` (one epoch; d once a layer a
-   step and its backward recomputed as often), then ``search --rerank``
-   running the trained ``local-cross-encoder`` (d in the pair forwards,
-   ranked as a CPU session); bge-small contrastive steps at batch 64 and
+   touched rows, the searches after the re-index ranked as a CPU session's
+   on the same index, kernels a and c launched); ``train --cross-encoder``
+   (one epoch; d once a layer a step and its backward recomputed as
+   often), then ``search --rerank`` running the trained
+   ``local-cross-encoder`` (d in the pair forwards, ranked as a CPU
+   session); bge-small contrastive steps at batch 64 and
    ``max_len`` 128, one held to the CPU's (loss within 1e-2, gradients at
    cosine 0.99 per parameter), ten timed (d 24 times a step and 24
    recomputes, no other plain version), two profiled. The autograd
    route's backward runs ``reference_attention`` as often as it counts.
+   After ``train`` the index holds as many chunks as before, and no search
+   returns a chunk twice;
+12. the rest of the CLI on the card (in this process): ``stats --json``
+   over phase 4's indexes (the trained hash index, bge-small's, an int8
+   copy) equal to ``--platform cpu``'s; ``doctor --json`` (every check ok,
+   equal to the CPU's) and ``doctor --device --json`` (the probe's round
+   trip on the card, named) on an index of a copy of the port's sources;
+   ``search --all-repos --json`` over two registered copies (bf16 and int8)
+   from a directory that holds neither, every group equal to that
+   repository's own ``search``, kernels a, b and c launched under the path
+   ``all_repos`` (no plain version called), each of their calls held
+   against its plain version on the same inputs, and the groups ranked as
+   the CPU's off near-ties.
 
 Beside each kernel's time (CUDA events around one call) it prints its
 bound on the card (the larger of the bytes it must move over 3.35 TB/s and
@@ -138,6 +152,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -961,7 +976,7 @@ def repo_index_and_cli(work: Path, device: str, model: str = "code-hash-384") ->
            "--json", "--limit", "5"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
-                          env=os.environ.copy())
+                          env=os.environ.copy(), stdin=subprocess.DEVNULL)
     check(proc.returncode == 0, f"CLI search failed ({proc.returncode}): {proc.stderr[-2000:]}")
     resp = json.loads(proc.stdout)
     hits = resp["results"]
@@ -2330,6 +2345,12 @@ def _searches(db: Path, device: str, limit: int) -> list:
     return [session.search(q, SearchOptions(limit=limit)) for q in TRAIN_QUERIES]
 
 
+def _chunk_count(db: Path) -> int:
+    from codesearch_tpu_torch.vectordb import VectorStore
+
+    return len(VectorStore(db, dims=DIMS, readonly=True, device="cpu"))
+
+
 def _mined(db: Path, device: str) -> list:
     from codesearch_tpu_torch.train.data import mine_pairs
     from codesearch_tpu_torch.vectordb import VectorStore
@@ -2343,8 +2364,10 @@ def train_hash_phase(work: Path, device: str) -> dict:
     4's index of the port's sources, on the card, and with ``--platform
     cpu`` on a copy of that index: per-epoch losses within TRAIN_LOSS_RTOL,
     the saved tables' bf16 entries equal in TABLE_EQUAL_MIN of the touched
-    rows, the same searches' hits alike off near-ties, and kernels a and c
-    launched by the searches over the re-indexed corpus."""
+    rows, the searches over the re-indexed corpus ranked as a CPU session's
+    on the same index off near-ties (the CPU-trained index's ranking and
+    score differences logged beside), kernels a and c launched by them, as
+    many chunks as before ``train`` and no hit twice."""
     import numpy as np
 
     from codesearch_tpu_torch.cli.main import main as cli
@@ -2363,6 +2386,7 @@ def train_hash_phase(work: Path, device: str) -> dict:
         return table, epoch_losses
 
     hash_finetune.finetune_table = recorded
+    chunks_before = _chunk_count(db)
     try:
         reset_counts()
         t0 = time.perf_counter()
@@ -2387,13 +2411,29 @@ def train_hash_phase(work: Path, device: str) -> dict:
     with PlainCalls() as plain:
         hits = _searches(db, device, 10)
         search_counts = launch_counts()
-    ref = _searches(db_cpu, "cpu", 11)
+    # the card's index searched on the CPU (the plain versions, the same
+    # trained table), and the CPU-trained index: the two tables differ in the
+    # bf16 entries counted above, so its scores move by more than a near-tie
+    ref = _searches(db, "cpu", 11)
     mismatches = sum(ranked_alike(g.hits, w.hits, 1e-4) for g, w in zip(hits, ref))
-    out = {"pairs": len(_mined(db_cpu, "cpu")), "epochs": TRAIN_EPOCHS,
+    cpu_trained = _searches(db_cpu, "cpu", 11)
+    cross = sum(ranked_alike(g.hits, w.hits, 1e-4) for g, w in zip(hits, cpu_trained))
+    cross_err = max((abs(h.score - w.score) for g, c in zip(hits, cpu_trained)
+                     for h in g.hits for w in c.hits if w.chunk_id == h.chunk_id), default=0.0)
+    # the re-index replaced the untrained rows: as many chunks as before,
+    # and no chunk in a search's hits twice
+    chunks_after = {"device": _chunk_count(db), "cpu": _chunk_count(db_cpu)}
+    repeated = sum(len(r.hits) - len({(h.path, h.start_line) for h in r.hits})
+                   for r in hits + ref + cpu_trained)
+    out = {"chunks_before": chunks_before, "chunks_after": chunks_after,
+           "repeated_hits": repeated, "pairs": len(_mined(db_cpu, "cpu")),
+           "epochs": TRAIN_EPOCHS,
            "losses": gpu_l.tolist(), "cpu_losses": cpu_l.tolist(), "loss_max_rel_err": loss_rel,
            "touched_rows": int(touched.sum()), "table_equal_share": equal_share,
            "train_and_reindex_s": t1 - t0, "cpu_train_and_reindex_s": t2 - t1,
            "rank_mismatches_off_near_ties": mismatches,
+           "rank_mismatches_against_the_cpu_trained_index": cross,
+           "max_score_diff_against_the_cpu_trained_index": cross_err,
            "launches": {"train_hash": train_counts, "search_after_train": search_counts},
            "plain_calls": dict(plain.calls)}
     log(f"phase 11a train (code-hash-384): {json.dumps(out)}")
@@ -2401,7 +2441,10 @@ def train_hash_phase(work: Path, device: str) -> dict:
           f"train's losses on {device} are not the CPU's: {gpu_l} against {cpu_l}")
     check(touched.any() and equal_share >= TABLE_EQUAL_MIN,
           f"the trained tables agree in {equal_share:.4f} of the touched rows' entries")
-    check(mismatches == 0, "the searches after train rank unlike the CPU session's")
+    check(mismatches == 0, "the searches after train rank unlike a CPU session's on its index")
+    check(chunks_after == {"device": chunks_before, "cpu": chunks_before} and repeated == 0,
+          f"train left stale rows: {chunks_before} chunks before, {chunks_after} after, "
+          f"{repeated} repeated hits")
     if device == "cuda":
         check(search_counts["fused_cosine_topk"] >= len(TRAIN_QUERIES)
               and search_counts["fused_scores_topk"] > 0,
@@ -2615,11 +2658,227 @@ def training(work: Path, device: str) -> dict:
             "seconds": seconds, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the rest of the CLI on the card
+# ---------------------------------------------------------------------------
+
+CLI_QUERIES = TRAIN_QUERIES[:4]
+CLI_LIMIT = 10
+CLI_SCORE_TOL = 2e-4        # the CLI's --json rounds scores to 4 decimals
+
+
+class KernelInputs:
+    """Records the inputs of every call of the top-k wrappers a, b, c while
+    active (cloned), so each can be held against its plain version at the
+    shapes the path gave it. The recorded calls are the path's own; the
+    checks launch again only after the counted window."""
+
+    def __enter__(self):
+        from codesearch_tpu_torch.ops import bm25
+        from codesearch_tpu_torch.ops import fused_topk as ft
+
+        self.calls: list = []
+        self._saved = [(ft, "fused_cosine_topk"), (ft, "fused_cosine_topk_int8"),
+                       (bm25, "fused_scores_topk")]
+        self._saved = [(mod, name, getattr(mod, name)) for mod, name in self._saved]
+        for mod, name, fn in self._saved:
+            def recording(*args, _fn=fn, _name=name):
+                self.calls.append((_name, [a.clone() if hasattr(a, "clone") else a
+                                           for a in args]))
+                return _fn(*args)
+
+            setattr(mod, name, recording)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def hold_to_plain(name: str, args: list) -> dict:
+    """One recorded call of a, b or c against its plain version on the same
+    inputs: b and c bit for bit, a as in phase 3 (SCORE_TOL, no index
+    mismatch away from near-ties)."""
+    import torch
+
+    from codesearch_tpu_torch.ops import fused_topk as ft
+
+    kernel, plain = getattr(ft, name), getattr(ft, name + "_plain")
+    got, ref = kernel(*args), plain(*args)
+    out = {"kernel": name, "shape": [list(a.shape) for a in args if hasattr(a, "shape")],
+           "k": int(args[3] if name == "fused_scores_topk" else args[-1])}
+    if name != "fused_cosine_topk":
+        out["equal"] = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        out["max_abs_err"] = float((got[0] - ref[0]).abs().max())
+        return out
+    q, corpus, valid, k = args
+    plain_scores = torch.where(valid[None, :], q.to(torch.bfloat16).float() @ corpus.float().T,
+                               ft.NEG_INF)
+    if k < corpus.shape[0]:
+        ref_next = plain(q, corpus, valid, k + 1)
+    else:       # every row taken: nothing past the k-th position
+        ref_next = (torch.cat([ref[0], ref[0].new_full((q.shape[0], 1), ft.NEG_INF)], 1),)
+    err, row_err, mism = compare_cosine(got, ref, ref_next, plain_scores)
+    out.update(max_abs_err=err, max_row_err=row_err, index_mismatches_off_near_ties=mism,
+               equal=err <= SCORE_TOL and row_err <= SCORE_TOL and mism == 0)
+    return out
+
+
+def _cli_json(argv: list, device: str):
+    """The port's CLI in this process with ``argv`` (``--json`` output):
+    (milliseconds, the parsed standard output); it must exit 0."""
+    import contextlib
+    import io
+
+    from codesearch_tpu_torch.cli.main import main as cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli([*_platform(device), *argv])
+    ms = (time.perf_counter() - t0) * 1e3
+    check(rc == 0, f"`{' '.join(argv)}` exited {rc} on {device}")
+    return ms, json.loads(buf.getvalue())
+
+
+def _json_ranked_alike(got: list, want: list) -> int:
+    """ranked_alike over ``--json`` results, a hit named by path and line."""
+    def hits(results):
+        return [types.SimpleNamespace(chunk_id=(h["path"], h["start_line"]), score=h["score"])
+                for h in results]
+
+    return ranked_alike(hits(got), hits(want) + [types.SimpleNamespace(
+        chunk_id=None, score=-math.inf)], CLI_SCORE_TOL)
+
+
+def cli_phase(work: Path, device: str) -> dict:
+    """Phase 12: ``stats --json`` over phase 4's indexes (the trained hash
+    index, bge-small's and an int8 copy) against ``--platform cpu``;
+    ``doctor --json`` and ``doctor --device --json`` on an index of a copy of
+    the port's sources; ``search --all-repos --json`` over two registered
+    copies (bf16 and int8), every group equal to that repository's own
+    ``search``, kernels a, b and c launched (the counts set to 0 just
+    before, read just after, no plain version called) and each of their
+    calls held against its plain version on the same inputs, the groups
+    ranked as the CPU's. The small corpora take the device routes through
+    the stores' module knobs, as phase 11a's searches do."""
+    import torch
+
+    from codesearch_tpu_torch.cli.main import main as cli
+    from codesearch_tpu_torch.fts import store as fts_store
+    from codesearch_tpu_torch.vectordb import store as vec_store
+
+    root = work / "cli"
+    root.mkdir()
+    int8_db = root / "self-db-int8"
+    shutil.copytree(work / "self-db-code-hash-384", int8_db)
+    set_int8(int8_db, True)
+    stats, stats_ms = {}, {}
+    for tag, db in (("code-hash-384", work / "self-db-code-hash-384"),
+                    ("bge-small", work / f"self-db-{BERT_MODEL}"), ("int8", int8_db)):
+        ms, got = _cli_json(["--store", str(db), "stats", "--json"], device)
+        cpu_ms, want = _cli_json(["--store", str(db), "stats", "--json"], "cpu")
+        check(got == want, f"stats --json of {tag} differs from --platform cpu's: {got} {want}")
+        check(got["vector"]["chunks"] == got["fts"]["docs"] > 100,
+              f"stats of {tag} counts too few chunks: {got['vector']}")
+        stats[tag], stats_ms[tag] = got, {"ms": ms, "cpu_ms": cpu_ms}
+    check(2 * stats["int8"]["vector"]["device_bytes"]
+          == stats["code-hash-384"]["vector"]["device_bytes"],
+          "stats of the int8 copy does not count one byte an entry")
+
+    repos = {}
+    ignore = shutil.ignore_patterns("__pycache__")
+    for tag, flags in (("bf16", []), ("int8", ["--int8"])):
+        repo = root / f"repo-{tag}"
+        shutil.copytree(ROOT / "codesearch_tpu_torch", repo, ignore=ignore)
+        check(cli(["-q", *_platform(device), "index", str(repo), *flags]) == 0,
+              f"index {tag} failed")
+        repos[tag] = repo
+    for repo in repos.values():
+        check(cli(["-q", "index", "add", str(repo)]) == 0, f"index add {repo} failed")
+
+    doctor_ms, checks = _cli_json(["doctor", str(repos["bf16"]), "--json"], device)
+    _, cpu_checks = _cli_json(["doctor", str(repos["bf16"]), "--json"], "cpu")
+    check(all(c["ok"] for c in checks) and checks == cpu_checks,
+          f"doctor on {device}: {checks}; on the CPU: {cpu_checks}")
+    device_ms, with_probe = _cli_json(["doctor", str(repos["bf16"]), "--device", "--json"],
+                                      device)
+    probe = with_probe[-1]
+    name = "cpu" if device == "cpu" else torch.cuda.get_device_name(0)
+    check(probe["name"] == "device_roundtrip" and probe["ok"]
+          and probe["detail"].startswith(f"device={name}, "),
+          f"doctor --device's probe: {probe}")
+    probe_s = float(probe["detail"].split("round trip ")[1].rstrip("s"))
+
+    cwd = root / "elsewhere"
+    cwd.mkdir()
+    knobs = [(vec_store, "HOST_PATH_ROWS", 0), (fts_store, "DEVICE_MIN_DOCS", 1),
+             (fts_store, "PLANE_DF_FLOOR", 64)]
+    saved = [(mod, k, getattr(mod, k)) for mod, k, _ in knobs]
+    for mod, k, v in knobs:
+        setattr(mod, k, v)
+    try:
+        own = {tag: [_cli_json(["search", q, str(repo), "--json", "--limit", str(CLI_LIMIT)],
+                               device)[1] for q in CLI_QUERIES]
+               for tag, repo in repos.items()}
+        all_ms = []
+        with KernelInputs() as recorded, PlainCalls() as plain:
+            reset_counts()
+            for q in CLI_QUERIES:
+                ms, groups = _cli_json(["search", q, str(cwd), "--all-repos", "--json",
+                                        "--limit", str(CLI_LIMIT)], device)
+                all_ms.append((ms, groups))
+            counts = launch_counts()
+            plain_calls = dict(plain.calls)
+        cpu = [_cli_json(["search", q, str(cwd), "--all-repos", "--json", "--limit",
+                          str(CLI_LIMIT)], "cpu") for q in CLI_QUERIES]
+    finally:
+        for mod, k, v in saved:
+            setattr(mod, k, v)
+    dbs = [str(repos[t] / ".codesearch.db") for t in ("bf16", "int8")]
+    mismatches = 0
+    for qi, (_, groups) in enumerate(all_ms):
+        check([g["db_path"] for g in groups] == dbs, f"--all-repos searched {groups}")
+        for tag, group in zip(("bf16", "int8"), groups):
+            check({k: v for k, v in group.items() if k != "db_path"} == own[tag][qi],
+                  f"--all-repos' {tag} group differs from the repository's own search")
+            check(len(group["results"]) == CLI_LIMIT, f"--all-repos' {tag} group lacks hits")
+        for group, want in zip(groups, cpu[qi][1]):
+            mismatches += _json_ranked_alike(group["results"], want["results"])
+    held = [hold_to_plain(n, a) for n, a in recorded.calls]
+    by_kernel = {}
+    for h in held:
+        k = by_kernel.setdefault(h["kernel"], {"calls": 0, "shapes": [], "all_equal": True,
+                                               "max_abs_err": 0.0})
+        k["calls"] += 1
+        k["all_equal"] &= h["equal"]
+        k["max_abs_err"] = max(k["max_abs_err"], h["max_abs_err"])
+        if [h["shape"], h["k"]] not in k["shapes"]:
+            k["shapes"].append([h["shape"], h["k"]])
+    out = {"stats": stats_ms, "doctor_ms": doctor_ms, "doctor_device_ms": device_ms,
+           "probe_s": probe_s, "probe": probe["detail"],
+           "all_repos_ms": [ms for ms, _ in all_ms],
+           "all_repos_cpu_ms": [ms for ms, _ in cpu],
+           "rank_mismatches_off_near_ties": mismatches, "kernels_held_to_plain": by_kernel,
+           "plain_calls": plain_calls, "launches": {"all_repos": counts}}
+    log(f"phase 12 CLI ({device}): {json.dumps(out)}")
+    check(mismatches == 0, "--all-repos ranks unlike the CPU's")
+    check(all(h["equal"] for h in held),
+          "a kernel of --all-repos disagrees with its plain version")
+    if device == "cuda":
+        check(not plain_calls, f"plain versions ran in --all-repos: {plain_calls}")
+        for kernel in ("fused_cosine_topk", "fused_cosine_topk_int8", "fused_scores_topk"):
+            check(counts[kernel] >= len(CLI_QUERIES),
+                  f"--all-repos did not launch {kernel}: {counts}")
+    return out
+
+
 def nvidia_smi_line() -> str:
     try:
         proc = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60)
+            capture_output=True, text=True, timeout=60, stdin=subprocess.DEVNULL)
     except (OSError, subprocess.TimeoutExpired) as e:
         raise SmokeFailure(f"nvidia-smi failed: {e}")
     check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
@@ -2685,6 +2944,9 @@ def main() -> int:
         log(f"phase 10 results ({smi}): {json.dumps(family, default=str)}")
         trained = training(work, "cuda")
         log(f"phase 11 results ({smi}): {json.dumps(trained, default=str)}")
+        t = time.perf_counter()
+        cli = cli_phase(work, "cuda")
+        log(f"phase 12 seconds: {time.perf_counter() - t:.2f} ({smi})")
         timing["attention_full"]["rotary_shapes"] = family["d_at_rotary_shapes"]
         timing["attention_full"]["training_shapes"] = grads["attention_full"]
         timing["attention_flash"]["training_shapes"] = grads["attention_flash"]
@@ -2693,11 +2955,11 @@ def main() -> int:
         # int8 queries (the "search" route) and the direct S=2048 call of the
         # encoder attention that only e serves (the "direct" route), phase
         # 9's (the waves, MCP, HTTP) and phase 10's (Nomic, ModernBERT,
-        # rerank) and phase 11's (train and the searches after it, train
-        # --cross-encoder and the reranked searches, the contrastive steps),
-        # each counted on its own
+        # rerank), phase 11's (train and the searches after it, train
+        # --cross-encoder and the reranked searches, the contrastive steps)
+        # and phase 12's (search --all-repos), each counted on its own
         paths = {**bert["launches"], **served["launches"], **family["launches"],
-                 **trained["launches"]}
+                 **trained["launches"], **cli["launches"]}
         for name, via in (("fused_cosine_topk", "search"), ("fused_cosine_topk_int8", "search"),
                           ("fused_scores_topk", "search"), ("attention_full", "search"),
                           ("attention_flash", "direct")):

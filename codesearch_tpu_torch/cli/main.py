@@ -1,16 +1,19 @@
 """Command line of the port: ``python -m codesearch_tpu_torch.cli`` (or
-``codesearch-torch``). It takes the JAX CLI's arguments; ``index``,
-``search``, ``mcp`` (the MCP stdio server), ``serve`` (the HTTP server),
-``train`` (the hash table's fine-tuning, then a re-index) and ``train
---cross-encoder`` (the local reranker) run on torch, every other subcommand
-exits 2 as not yet ported. ``--platform cpu`` runs on the CPU; otherwise
-the first CUDA device."""
+``codesearch-torch``). It takes the JAX CLI's arguments and runs every one
+of its subcommands on torch: ``index`` (with the registry actions ``add``,
+``remove``/``rm`` and ``list``, and ``--dry-run``), ``search`` (and
+``--all-repos``), ``stats``, ``clear``, ``list``, ``cache``, ``setup``,
+``doctor``, ``mcp``, ``serve`` and ``train``. ``--platform cpu`` runs on the
+CPU; otherwise the first CUDA device, and a subcommand that opens a store or
+a model raises when there is none. ``clear``, ``cache``, ``setup``, the
+registry actions and ``--dry-run`` touch files only."""
 
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shutil
 import signal
 import sys
 from pathlib import Path
@@ -19,9 +22,6 @@ from .. import __version__
 from ..utils import constants
 from ..utils.logger import init_logger
 from ..utils.output import error_print, info_print, result_print, set_quiet
-
-PORTED = ("index", "search", "mcp", "serve", "train")
-
 
 def _install_sigint() -> None:
     """First CTRL-C requests graceful shutdown; second force-exits
@@ -187,31 +187,13 @@ def main(argv: list[str] | None = None) -> int:
     if args.command is None:
         parser.print_help(sys.stderr)
         return 2
-    if args.command not in PORTED:
-        error_print(f"`{args.command}` is not yet ported to the torch package "
-                    "(ROADMAP.md Queue 1); the JAX CLI `codesearch` has it")
-        return 2
     set_quiet(args.quiet)
     _install_sigint()
     init_logger(level=args.loglevel if args.loglevel != "warn" else "warning",
                 quiet=args.quiet)
     device = "cpu" if args.platform == "cpu" else None
     try:
-        if args.command == "search":
-            return _cmd_search(args, device)
-        if args.command == "mcp":
-            from ..server.mcp import run_mcp_server
-
-            return run_mcp_server(Path(args.path), create_index=not args.no_create_index,
-                                  device=device)
-        if args.command == "serve":
-            from ..server.http import serve
-
-            return serve(Path(args.path), host=args.host, port=args.port,
-                         initial_index=not args.no_create_index, device=device)
-        if args.command == "train":
-            return _cmd_train(args, device)
-        return _cmd_index(args, device)
+        return _COMMANDS[args.command](args, device)
     except KeyboardInterrupt:
         return 130
     except Exception as e:  # the CLI boundary: report, exit non-zero
@@ -221,6 +203,20 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
 
+def _cmd_mcp(args, device) -> int:
+    from ..server.mcp import run_mcp_server
+
+    return run_mcp_server(Path(args.path), create_index=not args.no_create_index,
+                          device=device)
+
+
+def _cmd_serve(args, device) -> int:
+    from ..server.http import serve
+
+    return serve(Path(args.path), host=args.host, port=args.port,
+                 initial_index=not args.no_create_index, device=device)
+
+
 def _cmd_search(args, device) -> int:
     from ..models import parse_model
     from ..search import SearchOptions, search
@@ -228,9 +224,6 @@ def _cmd_search(args, device) -> int:
     if args.model is not None and parse_model(args.model) is None:
         error_print(f"unknown model: {args.model!r}")
         return 1
-    if args.all_repos:
-        error_print("--all-repos is not yet ported to the torch package")
-        return 2
     if args.files_only and (args.json_out or args.compact):
         error_print("--files-only cannot combine with --json/--compact")
         return 1
@@ -241,19 +234,54 @@ def _cmd_search(args, device) -> int:
         no_expand=args.no_expand, rrf_k=args.rrf_k, rerank_top=args.rerank_top,
         per_file=args.max_per_file, store_path=args.store,
     )
+    if args.all_repos:
+        return _search_all_repos(args, options, device)
     resp = search(args.query, args.path, options, device=device)
+    if args.json_out:
+        result_print(json.dumps(_response_json(resp, args.scores), indent=2))
+    else:
+        _print_hits(resp, args)
+    return 0
+
+
+def _print_hits(resp, args) -> None:
+    """One response as ``--files-only``, ``--compact`` or the pretty text."""
     if args.files_only:
         for p in dict.fromkeys(h.path for h in resp.hits):
             result_print(p)
-    elif args.json_out:
-        result_print(json.dumps(_response_json(resp, args.scores), indent=2))
     elif args.compact:
         for h in resp.hits:
             result_print(f"{h.path}:{h.start_line + 1}-{h.end_line} {h.score:.3f} "
                          f"{h.kind} {h.signature or ''}".rstrip())
     else:
         _pretty_print(resp, args.scores, full=args.full)
-    return 0
+
+
+def _search_all_repos(args, options, device) -> int:
+    """Federated output: one section per database, results grouped (RRF
+    scores compare only within a corpus). Unopenable databases are reported
+    and skipped; exit 1 when no database answered with a hit."""
+    from ..search import search_all
+
+    grouped = search_all(args.query, args.path, options, device=device)
+    if not grouped:
+        error_print("no indexes found (cwd/parents or global registry)")
+        return 1
+    if args.json_out:
+        result_print(json.dumps(
+            [{"db_path": db, "error": str(resp)} if isinstance(resp, Exception)
+             else {"db_path": db, **_response_json(resp, args.scores)}
+             for db, resp in grouped], indent=2))
+        return 0
+    any_hits = False
+    for db, resp in grouped:
+        if isinstance(resp, Exception):
+            error_print(f"[{db}] skipped: {resp}")
+            continue
+        result_print(f"=== {db} ({resp.total_chunks} chunks)")
+        _print_hits(resp, args)
+        any_hits = any_hits or bool(resp.hits)
+    return 0 if any_hits else 1
 
 
 def _response_json(resp, scores: bool) -> dict:
@@ -316,27 +344,54 @@ def _pretty_print(resp, scores: bool, full: bool = False) -> None:
 
 
 def _cmd_index(args, device) -> int:
-    from ..index import IndexOptions, index, register_repo
+    from ..index import (
+        IndexOptions,
+        index,
+        read_metadata,
+        register_repo,
+        registered_repos,
+        unregister_repo,
+    )
 
     rest = list(args.args)
-    if rest and rest[0] in ("add", "remove", "rm", "list"):
-        error_print("index registry subcommands are not yet ported; use `codesearch index`")
-        return 2
+    action = rest.pop(0) if rest and rest[0] in ("add", "remove", "rm", "list") else None
     path = rest[0] if rest else "."
+    if action == "add":
+        register_repo(Path(path).resolve())
+        info_print(f"registered {Path(path).resolve()}")
+        return 0
+    if action in ("remove", "rm"):      # rm: the reference's alias (cli/mod.rs:23)
+        unregister_repo(Path(path).resolve())
+        info_print(f"unregistered {Path(path).resolve()}")
+        return 0
+    if action == "list":
+        for repo in registered_repos():
+            result_print(repo)
+        return 0
     stats = index(path, IndexOptions(
         model=args.model or "code-hash-384", force=args.force, quiet=args.quiet,
         store_path=args.store, int8=args.int8, global_db=args.global_db,
         dry_run=args.dry_run, dedup=args.dedup), device=device)
+    if args.dry_run:
+        return 0
     if args.register:
         register_repo(Path(path).resolve())
     info_print(f"indexed {stats.files_indexed} files ({stats.chunks_added} chunks) "
                f"in {stats.elapsed_s:.1f}s — db: {stats.db_path}")
+    # the weights-free default model gains from fine-tuning on the repo
+    # (benchmarks/trained_table.md: 7/9 -> 9/9 top-3 on the labeled set); key
+    # on the model the index uses (its metadata overrides the CLI default)
+    if (read_metadata(stats.db_path).get("model", "").startswith("code-hash")
+            and stats.chunks_added > 0
+            and not (stats.db_path / "hash_table.npz").exists()):
+        info_print("tip: `codesearch-torch train` fine-tunes retrieval on this "
+                   "repo (no downloads; measured 7/9 → 9/9 top-3)")
     return 130 if stats.cancelled else 0
 
 
-def _train_db(args):
-    """The index ``train`` reads: ``--store`` or the one found from the
-    path (None after printing why)."""
+def _named_db(args):
+    """The index ``stats`` and ``train`` read: ``--store`` or the one found
+    from the path (None after printing why)."""
     from ..index import resolve_database_with_message
 
     if args.store is not None:
@@ -345,6 +400,124 @@ def _train_db(args):
     if db is None:
         error_print(msg)
     return db
+
+
+def _cmd_stats(args, device) -> int:
+    from ..index import db_stats
+
+    db = _named_db(args)
+    if db is None:
+        return 1
+    s = db_stats(db, device=device)
+    if args.json_out:
+        result_print(json.dumps(s, indent=2))
+        return 0
+    fts = s["fts"]
+    result_print(
+        f"database: {s['db_path']}\n"
+        f"model: {s['model']} ({s['vector'].get('dims', '?')}d)\n"
+        f"files: {s['files']}  chunks: {s['vector'].get('chunks', '?')}\n"
+        f"fts terms: {fts['docs']} docs / {fts['terms']} terms\n"
+        f"bloat ratio: {s['vector'].get('bloat_ratio', 1.0)}"
+        "  (allocated/live rows; >2.0: rebuild reclaims device memory)\n"
+        f"serving: planes {'on' if fts['planes_enabled'] else 'OFF'} "
+        f"({fts['plane_rows_used']}/{fts['plane_rows_cap']} rows, "
+        f"{fts['plane_builds']} builds, {fts['plane_evictions']} evictions), "
+        f"exact tiers: {fts['exact_tier_sidecars']} sidecar(s)\n"
+        f"indexed_at: {s['indexed_at']}\n"
+        f"primary_language: {s['primary_language']}")
+    return 0
+
+
+def _cmd_clear(args, device) -> int:
+    from ..index import clear_database, resolve_database_with_message
+
+    db, msg = resolve_database_with_message(Path(args.path))
+    if db is None:
+        error_print(msg)
+        return 1
+    if not args.yes:
+        error_print(f"would delete {db} — pass --yes to confirm")
+        return 1
+    clear_database(db)
+    info_print(f"deleted {db}")
+    return 0
+
+
+def _cmd_doctor(args, device) -> int:
+    from .doctor import run_doctor
+
+    return run_doctor(Path(args.path), fix=args.fix, json_out=args.json_out,
+                      device=args.device, platform=args.platform)
+
+
+def _cmd_setup(args, device) -> int:
+    """``setup --list`` prints the registry; ``setup --import DIR --as NAME``
+    copies local model files into the models cache (nothing is downloaded)."""
+    from ..models import all_models, parse_model
+    from ..utils.constants import get_global_models_cache_dir
+
+    if args.import_dir is None:
+        result_print("\n".join(
+            f"{spec.short_name:20s} {spec.dims:5d}d  {spec.full_name}"
+            + (" (no download needed)" if spec.kind == "hash" else "")
+            for spec in all_models()))
+        return 0
+    if not args.import_as:
+        error_print("--import requires --as <short-name> (see setup --list)")
+        return 1
+    spec = parse_model(args.import_as)
+    if spec is None:
+        error_print(f"unknown model name: {args.import_as}")
+        return 1
+    dest = get_global_models_cache_dir() / spec.short_name
+    copied = [name for name in ("model.safetensors", "tokenizer.json", "vocab.txt",
+                                "config.json") if (args.import_dir / name).exists()]
+    if not copied:
+        error_print(f"no model assets found in {args.import_dir}")
+        return 1
+    dest.mkdir(parents=True, exist_ok=True)
+    for name in copied:
+        shutil.copy2(args.import_dir / name, dest / name)
+    info_print(f"imported {', '.join(copied)} → {dest}")
+    return 0
+
+
+def _cmd_cache(args, device) -> int:
+    """``cache stats`` (the default): bytes under the embedding cache, by
+    cache directory; ``cache clear --yes`` deletes it."""
+    from ..utils.constants import get_config_dir
+
+    cache_root = get_config_dir() / "embedding_cache"
+    if args.cache_command == "clear":
+        if not args.yes:
+            error_print(f"would delete {cache_root} — pass --yes to confirm")
+            return 1
+        shutil.rmtree(cache_root, ignore_errors=True)
+        info_print("embedding cache cleared")
+        return 0
+    per_model = {}
+    if cache_root.exists():
+        for model_dir in sorted(cache_root.iterdir()):
+            per_model[model_dir.name] = sum(f.stat().st_size for f in model_dir.rglob("*")
+                                            if f.is_file())
+    result_print(json.dumps({"total_bytes": sum(per_model.values()), "models": per_model},
+                            indent=2))
+    return 0
+
+
+def _cmd_list(args, device) -> int:
+    from ..index import db_stats, find_databases
+
+    dbs = find_databases(Path(args.path))
+    if not dbs:
+        result_print("no databases found")
+        return 0
+    for db in dbs:
+        s = db_stats(db, device=device)
+        result_print(f"{db}  model={s['model']}  files={s['files']}  "
+                     f"chunks={s['vector'].get('chunks', '?')}")
+    return 0
 
 
 def _mined_pairs(db: Path, meta: dict, device) -> list:
@@ -361,14 +534,13 @@ def _mined_pairs(db: Path, meta: dict, device) -> list:
 
 def _cmd_train(args, device) -> int:
     """Fine-tune the hash table on pairs mined from the index, save it as
-    ``<db>/hash_table.npz``, drop the file manifest and re-index with the
-    trained table; with ``--cross-encoder``, train and install the local
-    reranker instead."""
+    ``<db>/hash_table.npz``, delete the indexed chunks and the file manifest
+    and re-index with the trained table; with ``--cross-encoder``, train and
+    install the local reranker instead."""
     from ..index import IndexOptions, index, read_metadata
     from ..models import parse_model
-    from ..utils.constants import FILE_META_DB_NAME
 
-    db = _train_db(args)
+    db = _named_db(args)
     if db is None:
         return 1
     meta = read_metadata(db)
@@ -395,13 +567,37 @@ def _cmd_train(args, device) -> int:
         return 1
     save_table(trained, db / "hash_table.npz")
     info_print(f"loss {losses[0]:.4f} → {losses[-1]:.4f}; re-embedding corpus")
-    # drop the manifest so every file re-embeds with the trained table
-    (db / FILE_META_DB_NAME).unlink(missing_ok=True)
+    _drop_indexed_chunks(db, meta, spec.dims, device)
     stats = index(args.path, IndexOptions(model=spec.short_name, quiet=args.quiet,
                                           store_path=args.store), device=device)
     info_print(f"re-indexed {stats.files_indexed} files ({stats.chunks_added} chunks) "
                f"with the trained table")
     return 0
+
+
+def _drop_indexed_chunks(db: Path, meta: dict, dims: int, device) -> None:
+    """Delete every manifest file's chunks from the vector store and the
+    FTS (as ``index`` does for a deleted file), then the manifest, so the
+    re-index after ``train`` embeds every file anew with the trained table
+    and keeps none of the earlier rows. (The JAX CLI drops only the
+    manifest, and its stores keep the untrained rows beside the new ones.)"""
+    from ..fts import FtsStore
+    from ..index import FileMetaStore
+    from ..utils.constants import FILE_META_DB_NAME, FTS_DIR_NAME
+    from ..vectordb import VectorStore
+
+    fm = FileMetaStore.load_or_create(db)
+    store = VectorStore(db, dims=dims, int8=bool(meta.get("int8", False)), device=device)
+    fts = FtsStore(db / FTS_DIR_NAME, device=device)
+    for path in list(fm.files):
+        ids = fm.remove_file(path)
+        if ids:
+            store.delete_chunks(ids)
+            for cid in ids:
+                fts.delete_chunk(cid)
+    store.save()
+    fts.commit()
+    (db / FILE_META_DB_NAME).unlink(missing_ok=True)
 
 
 def _cmd_train_cross_encoder(args, db: Path, meta: dict, device) -> int:
@@ -426,3 +622,11 @@ def _cmd_train_cross_encoder(args, db: Path, meta: dict, device) -> int:
     info_print("`codesearch-torch search --rerank ...` now runs the real "
                "cross-encoder (rerank_mode=cross-encoder)")
     return 0
+
+
+_COMMANDS = {
+    "search": _cmd_search, "index": _cmd_index, "stats": _cmd_stats, "clear": _cmd_clear,
+    "doctor": _cmd_doctor, "setup": _cmd_setup, "mcp": _cmd_mcp, "serve": _cmd_serve,
+    "train": _cmd_train, "cache": _cmd_cache, "list": _cmd_list,
+}
+PORTED = tuple(_COMMANDS)    # every subcommand of the JAX CLI

@@ -367,3 +367,26 @@ class EmbeddingService:
         vec = self.backend.embed([self.spec.query_prefix + query])[0]
         self.query_cache.put(key, vec)
         return vec
+
+    # -- diagnostics ------------------------------------------------------------
+
+    def cache_stats(self) -> dict:
+        """Entries, bytes and hit counters of the memory and query LRUs, and
+        the persistent cache's own stats when there is one (its directory is
+        ``<model>-torch``, apart from the JAX package's)."""
+        stats = {
+            "memory": {
+                "entries": len(self.mem_cache),
+                "bytes": self.mem_cache.size_bytes,
+                "hits": self.mem_cache.hits,
+                "misses": self.mem_cache.misses,
+            },
+            "query": {
+                "entries": len(self.query_cache),
+                "hits": self.query_cache.hits,
+                "misses": self.query_cache.misses,
+            },
+        }
+        if self.persistent is not None:
+            stats["persistent"] = self.persistent.stats()
+        return stats

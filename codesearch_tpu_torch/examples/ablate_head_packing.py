@@ -83,7 +83,7 @@ def card_line() -> str:
     """The card's name and power limit as nvidia-smi reports them."""
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
-                          timeout=60, check=True)
+                          timeout=60, check=True, stdin=subprocess.DEVNULL)
     return proc.stdout.strip().splitlines()[0]
 
 

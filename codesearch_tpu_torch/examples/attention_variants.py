@@ -71,7 +71,7 @@ def build_variant(i: int, src: str) -> subprocess.Popen:
         [_build._find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
          str(out / "kernels.so"), str(_build.CSRC_DIR / "topk_kernels.cu"),
          str(out / "attention_kernels.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def resources(ptxas: str) -> list[dict]:

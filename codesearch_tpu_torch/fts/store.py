@@ -2082,3 +2082,35 @@ class FtsStore:
             )
             for s, p in zip(scores[top], pos[top])
         ]
+
+    def stats(self) -> dict:
+        """Counts, disk bytes and the serving state: the plane buffer's
+        occupancy and build/eviction/prewarm counters, the exact-tier
+        sidecars on disk and the tier's hit counters (``stats``, ``doctor``
+        and the HTTP ``/status``; the JAX store's keys)."""
+        with self._lock:
+            extra = [self.dir / self.DOCIDX_FILE, self.dir / self.PATHS_FILE,
+                     self._doclog_path] + list(self.dir.glob("docvalid*.bin"))
+            disk = sum(f.stat().st_size
+                       for f in (list(self.dir.glob("seg-*.npz"))
+                                 + list(self.dir.glob("seg-*.npy")) + extra)
+                       if f.exists())
+            st = self._dev_state or {}
+            planes = st.get("planes")
+            return {
+                "docs": self._n_live,
+                "terms": int(sum(len(s.terms) for s in self._segments)),
+                "postings": int(sum(len(s) for s in self._segments)) + self._new_terms.n,
+                "segments": len(self._segments),
+                "disk_bytes": disk,
+                "planes_enabled": self.planes_enabled,
+                "plane_rows_used": len(st.get("plane_rows") or {}),
+                "plane_rows_cap": int(planes.shape[0]) if planes is not None else 0,
+                "plane_builds": self.plane_builds,
+                "plane_evictions": self.plane_evictions,
+                "plane_prewarms": self.plane_prewarms,
+                "exact_tier_sidecars": len(list(self.dir.glob("seg-*.xtier.json"))),
+                "exact_tier_hits": self.exact_tier_hits,
+                "exact_tier_fallbacks": self.exact_tier_fallbacks,
+                "exact_tier_disk_hits": self.exact_tier_disk_hits,
+            }

@@ -33,6 +33,7 @@ from ..chunker.dedup import ChunkDeduplicator
 from ..embed import EmbeddingService
 from ..fileio import FileWalker
 from ..fts import FtsStore
+from ..models import parse_model
 from ..utils.constants import (
     DB_DIR_NAME,
     EMBEDDER_VERSION,
@@ -41,14 +42,15 @@ from ..utils.constants import (
     METADATA_FILE_NAME,
     is_shutdown_requested,
 )
+from ..utils.device import resolve_device
 from ..utils.errors import IndexError_
 from ..utils.output import ProgressLine, info_print, warn_print
 from ..vectordb import ChunkMetadata, VectorStore
 from .db_discovery import find_best_database, global_db_path, register_global_db
 from .file_meta import FileMetaStore, normalize_path
 
-__all__ = ["IndexOptions", "IndexStats", "index", "invalidate_for_embedder_version",
-           "read_metadata", "write_metadata"]
+__all__ = ["IndexOptions", "IndexStats", "clear_database", "db_stats", "index", "index_quiet",
+           "invalidate_for_embedder_version", "read_metadata", "write_metadata"]
 
 
 FTS_COMMIT_EVERY = 1000  # chunks between FTS commits (index/mod.rs:751)
@@ -217,6 +219,33 @@ def invalidate_for_embedder_version(db_path: Path, service: EmbeddingService,
     write_metadata(db_path, service, IndexStats(db_path=Path(db_path), int8=store.int8))
 
 
+def _dry_run(db_path: Path, root: Path, options: IndexOptions,
+             stats: IndexStats) -> IndexStats:
+    """``index --dry-run`` (index/mod.rs): walk and diff against the file
+    manifest, print what would be indexed and removed; no store is opened,
+    no model loaded and nothing written."""
+    meta = read_metadata(db_path)
+    name = meta.get("model", options.model) if not options.force else options.model
+    spec = parse_model(name)
+    if spec is None:
+        raise ValueError(f"unknown model: {name!r}")
+    files, _ = FileWalker(root, extra_excludes=list(options.extra_excludes)).walk()
+    stats.files_walked = len(files)
+    fm = FileMetaStore.load_or_create(db_path, spec.short_name)
+    for f in files:
+        if fm.check_file(f.path).changed:
+            stats.files_indexed += 1
+            info_print(f"  would index: {f.path}")
+        else:
+            stats.files_unchanged += 1
+    for dpath in fm.find_deleted_files({str(f.path) for f in files}):
+        stats.files_deleted += 1
+        info_print(f"  would remove: {dpath}")
+    info_print(f"dry run: {stats.files_indexed} to index, "
+               f"{stats.files_unchanged} unchanged, {stats.files_deleted} deleted")
+    return stats
+
+
 def index(path: str | Path = ".", options: IndexOptions | None = None,
           device=None, service: EmbeddingService | None = None,
           stores: tuple[VectorStore, FtsStore] | None = None) -> IndexStats:
@@ -231,7 +260,7 @@ def index(path: str | Path = ".", options: IndexOptions | None = None,
                                       options.global_db)
     stats = IndexStats(db_path=db_path, int8=options.int8)
     if options.dry_run:
-        raise NotImplementedError("index --dry-run is not ported yet (ROADMAP.md Queue 1)")
+        return _dry_run(db_path, root, options, stats)
 
     if options.force and db_path.exists() and stores is None:
         info_print(f"force rebuild: deleting {db_path}")
@@ -380,3 +409,53 @@ def index(path: str | Path = ".", options: IndexOptions | None = None,
     if stats.cancelled:
         info_print("indexing cancelled — partial progress saved; re-run to complete")
     return stats
+
+
+def index_quiet(path: str | Path = ".", device=None, **kw) -> IndexStats:
+    return index(path, IndexOptions(quiet=True, **kw), device=device)
+
+
+# ---------------------------------------------------------------------------
+# stats / clear / list subcommands (index/mod.rs:988-1313)
+# ---------------------------------------------------------------------------
+
+def db_stats(db_path: Path, device=None) -> dict:
+    """What ``stats`` and ``list`` print: the metadata, the manifest's file
+    count, the vector store's counts (``bloat_ratio``: allocated rows over
+    live rows) and the FTS store's, with the stores opened read-only for
+    ``device``. A vector store that fails to open reports its error."""
+    device = resolve_device(device)
+    meta = read_metadata(db_path)
+    dims = int(meta.get("dimensions", 384))
+    try:
+        s = VectorStore(db_path, dims=dims, readonly=True, int8=bool(meta.get("int8", False)),
+                        device=device).stats()
+        vec = {
+            "chunks": s.chunk_count,
+            "dims": s.dims,
+            "tombstones": s.tombstones,
+            "device_bytes": s.device_bytes,
+            "disk_bytes": s.disk_bytes,
+            # allocated rows / live rows; above 2.0 a rebuild halves the
+            # device matrix (all tombstones: the whole allocation)
+            "bloat_ratio": round((s.chunk_count + s.tombstones) / max(s.chunk_count, 1), 2),
+        }
+    except Exception as e:  # reported, as the JAX package does
+        vec = {"error": str(e)}
+    fts = FtsStore(Path(db_path) / FTS_DIR_NAME, readonly=True, device=device)
+    return {
+        "db_path": str(db_path),
+        "model": meta.get("model"),
+        "indexed_at": meta.get("indexed_at"),
+        "primary_language": meta.get("primary_language"),
+        "files": len(FileMetaStore.load_or_create(db_path).files),
+        "vector": vec,
+        "fts": fts.stats(),
+    }
+
+
+def clear_database(db_path: Path) -> bool:
+    if Path(db_path).exists():
+        shutil.rmtree(db_path, ignore_errors=True)
+        return True
+    return False

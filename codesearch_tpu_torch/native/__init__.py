@@ -56,6 +56,7 @@ def _load() -> ctypes.CDLL | None:
                     ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
                      "-o", str(tmp), str(_SRC)],
                     check=True, capture_output=True, timeout=120,
+                    stdin=subprocess.DEVNULL,
                 )
                 os.replace(tmp, so)
             lib = ctypes.CDLL(str(so))

@@ -105,12 +105,14 @@ def build(verbose: bool = False) -> Path:
         (src.name, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
              "-c", "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
         for src, obj in zip(sources, objs)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     output += _run([("link", subprocess.Popen(
         [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
+        stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True))])
     build_log.update(seconds=time.perf_counter() - t0, output=output)
     os.replace(tmp, out)
     for obj in objs:

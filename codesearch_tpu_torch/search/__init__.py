@@ -1,3 +1,9 @@
 """Search pipeline (torch)."""
 
-from .pipeline import SearchOptions, SearchResponse, SearchSession, search  # noqa: F401
+from .pipeline import (  # noqa: F401
+    SearchOptions,
+    SearchResponse,
+    SearchSession,
+    search,
+    search_all,
+)

@@ -54,7 +54,8 @@ from .analysis import (
 )
 from .degrade import dispatch_with_degrade
 
-__all__ = ["SearchHit", "SearchOptions", "SearchResponse", "SearchSession", "search"]
+__all__ = ["SearchHit", "SearchOptions", "SearchResponse", "SearchSession", "search",
+           "search_all"]
 
 EARLY_TERMINATION_SCORE = 0.85   # top-5 similarity (ref: distance < 0.15)
 LANGUAGE_BOOST = 1.2
@@ -645,3 +646,25 @@ def search(query: str, path: str | Path = ".", options: SearchOptions | None = N
     elif options.sync:
         index(path, IndexOptions(quiet=True), device=device)
     return SearchSession(db, model=options.model, device=device).search(query, options)
+
+
+def search_all(query: str, path: str | Path = ".", options: SearchOptions | None = None,
+               device=None) -> list[tuple[str, "SearchResponse | Exception"]]:
+    """Federated search: the same query against every index discoverable
+    from ``path`` (cwd, children, parents and the global registry: the set
+    ``list`` reports), each through its own session on ``device``. Results
+    stay grouped per database, since RRF scores compare only within one
+    corpus. A database that fails to open or to answer (a stale embedder
+    version, corruption) contributes its exception instead of ending the
+    rest."""
+    from ..index.db_discovery import find_databases
+
+    device = resolve_device(device)
+    options = options or SearchOptions()
+    out: list[tuple[str, SearchResponse | Exception]] = []
+    for db in find_databases(Path(path)):
+        try:
+            out.append((str(db), SearchSession(db, device=device).search(query, options)))
+        except Exception as e:  # per-database isolation
+            out.append((str(db), e))
+    return out

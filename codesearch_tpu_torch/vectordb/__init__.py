@@ -1,3 +1,3 @@
 """Device-resident vector store (torch)."""
 
-from .store import ChunkMetadata, SearchResult, VectorStore  # noqa: F401
+from .store import ChunkMetadata, SearchResult, StoreStats, VectorStore  # noqa: F401

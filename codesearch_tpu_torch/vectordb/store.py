@@ -129,6 +129,16 @@ class SearchResult:
     metadata: ChunkMetadata
 
 
+@dataclass
+class StoreStats:
+    chunk_count: int
+    dims: int
+    capacity: int
+    tombstones: int
+    device_bytes: int
+    disk_bytes: int
+
+
 def _fsync_file(fh) -> None:
     fh.flush()
     os.fsync(fh.fileno())
@@ -1311,8 +1321,13 @@ class VectorStore:
                 return None
             return self._fetch_meta(row)
 
+    def all_paths(self) -> set[str]:
+        with self._lock:
+            pids = np.unique(self._m_path.view()[self._valid.view()])
+            return {self._path_names[int(p)] for p in pids}
+
     def all_ids(self) -> list[int]:
-        """Live chunk ids (orphan sweeps)."""
+        """Live chunk ids (doctor / orphan sweeps)."""
         with self._lock:
             return self._cids.view()[self._valid.view()].tolist()
 
@@ -1335,3 +1350,18 @@ class VectorStore:
     def __len__(self) -> int:
         with self._lock:
             return int(self._valid.view().sum())
+
+    def stats(self) -> StoreStats:
+        """Live rows against allocated rows (``tombstones`` the difference),
+        the device matrix's bytes at this store's width (1 byte an entry
+        int8, 2 bf16) and the current generation's file bytes."""
+        with self._lock:
+            nv = int(self._valid.view().sum())
+            rows = self._rows
+            disk = sum(p.stat().st_size for p in (self._embed_path(self._generation),
+                                                  self._log_path(self._generation))
+                       if p.exists())
+            return StoreStats(chunk_count=nv, dims=self.dims, capacity=rows,
+                              tombstones=rows - nv,
+                              device_bytes=rows * self.dims * (1 if self.int8 else 2),
+                              disk_bytes=disk)

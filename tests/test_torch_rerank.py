@@ -337,9 +337,9 @@ def test_cli_search_rerank_json(repo_db, capsys):
     assert main(["--platform", "cpu", "--store", str(db), "search", QUERIES[0], str(repo),
                  "--json", "--limit", "3"]) == 0
     assert "rerank_mode" not in json.loads(capsys.readouterr().out)
-    # train --cross-encoder is ported (tests/test_torch_train.py); stats is not yet
-    assert main(["--platform", "cpu", "stats", str(repo)]) == 2
-    assert "`stats` is not yet ported" in capsys.readouterr().err
+    # stats reads the index the rerank queries ran over
+    assert main(["--platform", "cpu", "--store", str(db), "stats", str(repo), "--json"]) == 0
+    assert json.loads(capsys.readouterr().out)["vector"]["chunks"] == out["total_chunks"] > 0
 
 
 # ---------------------------------------------------------------------------

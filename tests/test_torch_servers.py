@@ -378,7 +378,7 @@ def test_servers_need_cuda_unless_the_cpu_is_named(repo, monkeypatch):
         run_mcp_server(repo)
     assert main(["serve", str(repo), "--port", "0", "--no-create-index"]) == 1
     assert main(["mcp", str(repo)]) == 1
-    assert main(["stats", str(repo)]) == 2      # still not ported
+    assert main(["stats", str(repo)]) == 1      # ported: it opens the stores on CUDA
 
 
 def test_http_takes_a_burst_of_connections(repo):

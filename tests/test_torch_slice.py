@@ -263,19 +263,29 @@ def test_port_refuses_bert_models(tmp_path):
         assert abs(float(np.linalg.norm(vec)) - 1.0) < 1e-4
 
 
-def test_cli_index_and_search_json(tmp_repo, tmp_path):
+def test_cli_index_and_search_json(tmp_repo, tmp_path, tmp_path_factory, monkeypatch, capsys):
+    import json
+
     from codesearch_tpu_torch.cli import main
 
+    # a home and a cwd of its own: `stats` sees no other test's index
+    table = th._table_bits_path(384, th.VOCAB_BUCKETS)
+    monkeypatch.setenv("CODESEARCH_HOME", str(tmp_path_factory.mktemp("home")))
+    th._table_bits_path(384, th.VOCAB_BUCKETS).symlink_to(table)
+    monkeypatch.chdir(tmp_path)
     db = tmp_path / "db"
     assert main(["--platform", "cpu", "--quiet", "--store", str(db), "index", str(tmp_repo)]) == 0
-    assert main(["--platform", "cpu", "stats"]) == 2     # not ported yet
+    capsys.readouterr()
+    assert main(["--platform", "cpu", "--store", str(db), "stats", "--json"]) == 0
+    chunks = json.loads(capsys.readouterr().out)["vector"]["chunks"]
+    assert chunks > 0
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-m", "codesearch_tpu_torch.cli", "--platform", "cpu", "--store",
          str(db), "search", "compute a content hash", str(tmp_repo), "--json"],
         capture_output=True, text=True, timeout=300, env=env, cwd=tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    import json
-
-    hits = json.loads(proc.stdout)["results"]
+    resp = json.loads(proc.stdout)
+    hits = resp["results"]
+    assert resp["total_chunks"] == chunks
     assert hits and hits[0]["path"].endswith("lib.rs")

@@ -37,6 +37,8 @@ package's ``codesearch_tpu.train`` on the CPU, on the same numpy inputs.
   repository; without ``--platform cpu`` training needs CUDA.
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -445,7 +447,7 @@ def test_checkpoint_round_trip(tmp_path):
 # the CLI
 # ---------------------------------------------------------------------------
 
-def test_cli_train_and_cross_encoder_on_a_tiny_repo(tmp_path, monkeypatch):
+def test_cli_train_and_cross_encoder_on_a_tiny_repo(tmp_path, monkeypatch, capsys):
     home = tmp_path / "home"
     monkeypatch.setenv("CODESEARCH_HOME", str(home))
     repo = tmp_path / "repo"
@@ -470,7 +472,10 @@ def test_cli_train_and_cross_encoder_on_a_tiny_repo(tmp_path, monkeypatch):
     ce = tcross.CrossEncoder(home / "models", device="cpu")
     assert ce.name == tce.LOCAL_CE_NAME and ce.mode == tcross.MODE_MODEL
     assert ce.cfg.hidden == tce.SMALL_CE_CFG.hidden
-    assert cli_main(["--platform", "cpu", "-q", "stats", str(repo)]) == 2
+    # the re-index after train left no stale rows: 3 files of 10 functions
+    capsys.readouterr()
+    assert cli_main(["--platform", "cpu", "-q", "stats", str(repo), "--json"]) == 0
+    assert json.loads(capsys.readouterr().out)["vector"]["chunks"] == 30
 
 
 def test_training_needs_cuda_unless_the_cpu_is_named():
