@@ -123,7 +123,24 @@ when any phase fails:
    repository's own ``search``, kernels a, b and c launched under the path
    ``all_repos`` (no plain version called), each of their calls held
    against its plain version on the same inputs, and the groups ranked as
-   the CPU's off near-ties.
+   the CPU's off near-ties;
+13. the corpus mesh on the card (``codesearch_tpu_torch.parallel``), four
+   logical shards of the one card installed as the corpus mesh and the
+   cache restored after: ``sharded_cosine_topk`` and ``_int8`` at N=1,048,576,
+   d=384, k=200, Q in {1, 9} over 2, 4 and 8 shards against the one-device
+   kernel (indices equal, b bit for bit, a within SCORE_TOL; a tie across a
+   shard edge ranked lowest index first), timed beside it; phase 5's and
+   phase 7's indexes (bf16 and int8) through sharded sessions (hybrid,
+   vector, identifier queries and a 64-query ``search_many`` wave), ranked
+   as one-device sessions with scores bit for bit; ``dp_embed_features``
+   over the port's sources' chunks (1e-5), ``dp_encode`` of bge-small on 256
+   chunks at bucket 512 (d 12 x 4 times) against one-device ``encode``, and
+   an ``index`` of the port's sources on the mesh (phase 4's chunk count and
+   hits). Its launches are the path "sharded" of a, b, c and d, with no
+   plain version and no ``torch.topk`` called; the merge's c launches are
+   counted apart from the BM25 legs', and every a, b and c call of the
+   phase (each shard's, the one-device call's and each merge's) is held
+   against its plain version on its own inputs.
 
 Beside each kernel's time (CUDA events around one call) it prints its
 bound on the card (the larger of the bytes it must move over 3.35 TB/s and
@@ -142,6 +159,7 @@ power-limit line, and last the result line the harness reads. It fails if
 from __future__ import annotations
 
 import collections
+import contextlib
 import importlib
 import json
 import math
@@ -958,7 +976,12 @@ def packed_ablation(work: Path) -> dict:
 # phase 4: the port's own sources through index() and the CLI
 # ---------------------------------------------------------------------------
 
-def repo_index_and_cli(work: Path, device: str, model: str = "code-hash-384") -> None:
+SELF_QUERY = "exact cosine top-k over the corpus"
+
+
+def repo_index_and_cli(work: Path, device: str, model: str = "code-hash-384") -> dict:
+    """Index the port's sources and search them through the CLI; returns the
+    chunk count and the CLI's (path, start line, score) hits."""
     from codesearch_tpu_torch.index import IndexOptions, index
 
     db = work / f"self-db-{model}"
@@ -972,7 +995,7 @@ def repo_index_and_cli(work: Path, device: str, model: str = "code-hash-384") ->
           f"the index metadata does not name {model}")
     cmd = [sys.executable, "-m", "codesearch_tpu_torch.cli", "--store", str(db),
            *(["--platform", "cpu"] if device == "cpu" else []),
-           "search", "exact cosine top-k over the corpus", str(ROOT / "codesearch_tpu_torch"),
+           "search", SELF_QUERY, str(ROOT / "codesearch_tpu_torch"),
            "--json", "--limit", "5"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
@@ -989,6 +1012,8 @@ def repo_index_and_cli(work: Path, device: str, model: str = "code-hash-384") ->
     # the hash model ranks by code features; bge-small's random weights rank noise
     check(model != "code-hash-384" or all(h["path"].endswith(".py") for h in hits),
           "CLI search returned unexpected results")
+    return {"chunks": stats.chunks_added,
+            "hits": [(h["path"], h["start_line"], h["score"]) for h in hits]}
 
 
 # ---------------------------------------------------------------------------
@@ -2669,31 +2694,58 @@ CLI_SCORE_TOL = 2e-4        # the CLI's --json rounds scores to 4 decimals
 
 class KernelInputs:
     """Records the inputs of every call of the top-k wrappers a, b, c while
-    active (cloned), so each can be held against its plain version at the
-    shapes the path gave it. The recorded calls are the path's own; the
-    checks launch again only after the counted window."""
+    active (cloned, unless ``clone`` is False for a window that writes none
+    of them afterwards), so each can be held against its plain version at
+    the shapes the path gave it. c has two call sites: the BM25 dense leg
+    (``ops.bm25``'s binding) and the sharded merge (``ops.fused_topk``'s,
+    which ``parallel.sharded_search`` calls); ``c_launches`` counts c's
+    launches at each. The recorded calls are the path's own; the checks
+    launch again only after the counted window."""
+
+    def __init__(self, clone: bool = True):
+        self.clone = clone
 
     def __enter__(self):
         from codesearch_tpu_torch.ops import bm25
         from codesearch_tpu_torch.ops import fused_topk as ft
 
         self.calls: list = []
-        self._saved = [(ft, "fused_cosine_topk"), (ft, "fused_cosine_topk_int8"),
-                       (bm25, "fused_scores_topk")]
-        self._saved = [(mod, name, getattr(mod, name)) for mod, name in self._saved]
-        for mod, name, fn in self._saved:
-            def recording(*args, _fn=fn, _name=name):
-                self.calls.append((_name, [a.clone() if hasattr(a, "clone") else a
-                                           for a in args]))
-                return _fn(*args)
+        self.c_launches = {"bm25": 0, "merge": 0}
+        sites = [(ft, "fused_cosine_topk", None), (ft, "fused_cosine_topk_int8", None),
+                 (bm25, "fused_scores_topk", "bm25"), (ft, "fused_scores_topk", "merge")]
+        self._saved = [(mod, name, getattr(mod, name), site) for mod, name, site in sites]
+        for mod, name, fn, site in self._saved:
+            def recording(*args, _fn=fn, _name=name, _site=site):
+                self.calls.append((_name, [a.clone() if self.clone and hasattr(a, "clone")
+                                           else a for a in args]))
+                before = ft.launch_counts["fused_scores_topk"]
+                out = _fn(*args)
+                if _site:
+                    self.c_launches[_site] += ft.launch_counts["fused_scores_topk"] - before
+                return out
 
             setattr(mod, name, recording)
         return self
 
     def __exit__(self, *exc):
-        for mod, name, fn in self._saved:
+        for mod, name, fn, _ in self._saved:
             setattr(mod, name, fn)
         return False
+
+
+def held_by_kernel(held: list) -> dict:
+    """``hold_to_plain`` results summed by kernel: calls, shapes, all equal,
+    the largest error."""
+    by_kernel: dict = {}
+    for h in held:
+        k = by_kernel.setdefault(h["kernel"], {"calls": 0, "shapes": [], "all_equal": True,
+                                               "max_abs_err": 0.0})
+        k["calls"] += 1
+        k["all_equal"] &= h["equal"]
+        k["max_abs_err"] = max(k["max_abs_err"], h["max_abs_err"])
+        if [h["shape"], h["k"]] not in k["shapes"]:
+            k["shapes"].append([h["shape"], h["k"]])
+    return by_kernel
 
 
 def hold_to_plain(name: str, args: list) -> dict:
@@ -2847,15 +2899,7 @@ def cli_phase(work: Path, device: str) -> dict:
         for group, want in zip(groups, cpu[qi][1]):
             mismatches += _json_ranked_alike(group["results"], want["results"])
     held = [hold_to_plain(n, a) for n, a in recorded.calls]
-    by_kernel = {}
-    for h in held:
-        k = by_kernel.setdefault(h["kernel"], {"calls": 0, "shapes": [], "all_equal": True,
-                                               "max_abs_err": 0.0})
-        k["calls"] += 1
-        k["all_equal"] &= h["equal"]
-        k["max_abs_err"] = max(k["max_abs_err"], h["max_abs_err"])
-        if [h["shape"], h["k"]] not in k["shapes"]:
-            k["shapes"].append([h["shape"], h["k"]])
+    by_kernel = held_by_kernel(held)
     out = {"stats": stats_ms, "doctor_ms": doctor_ms, "doctor_device_ms": device_ms,
            "probe_s": probe_s, "probe": probe["detail"],
            "all_repos_ms": [ms for ms, _ in all_ms],
@@ -2871,6 +2915,371 @@ def cli_phase(work: Path, device: str) -> dict:
         for kernel in ("fused_cosine_topk", "fused_cosine_topk_int8", "fused_scores_topk"):
             check(counts[kernel] >= len(CLI_QUERIES),
                   f"--all-repos did not launch {kernel}: {counts}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the corpus mesh on the card
+# ---------------------------------------------------------------------------
+
+MESH_ROWS = 1 << 20          # 768 MB of bf16 rows, 384 MB of int8
+MESH_SHARDS = (2, 4, 8)
+MESH_PRODUCT_SHARDS = 4
+MESH_DBS = (("code-hash-384", "synthetic-db"), (BERT_MODEL, "bert-synthetic-db"))
+MESH_DP_CHUNKS = 256         # dp_encode's batch, at bucket 512
+
+
+@contextlib.contextmanager
+def mesh_installed(mesh):
+    """``mesh`` as the port's corpus mesh (its module cache), the cached one
+    restored afterwards."""
+    from codesearch_tpu_torch.parallel import mesh as tmesh
+
+    saved = tmesh._corpus_mesh, tmesh._corpus_mesh_tried
+    tmesh._corpus_mesh, tmesh._corpus_mesh_tried = mesh, True
+    try:
+        yield mesh
+    finally:
+        tmesh._corpus_mesh, tmesh._corpus_mesh_tried = saved
+
+
+class TopkCalls:
+    """Counts ``torch.topk`` calls while active: the sharded merge must
+    select with kernel c (ties to the lowest index), which ``torch.topk``
+    does not promise."""
+
+    def __enter__(self):
+        import torch
+
+        self.calls = 0
+        self._saved = (torch.topk, torch.Tensor.topk)
+
+        def counted(fn):
+            def call(*args, **kwargs):
+                self.calls += 1
+                return fn(*args, **kwargs)
+            return call
+
+        torch.topk, torch.Tensor.topk = counted(torch.topk), counted(torch.Tensor.topk)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.topk, torch.Tensor.topk = self._saved
+        return False
+
+
+def mesh_direct(device: str, n_rows: int) -> dict:
+    """(a) ``sharded_cosine_topk`` and ``_int8`` at ``n_rows`` x DIMS, k=200,
+    Q in {1, 9}, over 2, 4 and 8 shards of one device, each held to the
+    one-device kernel on the same inputs: indices equal, b's scores bit for
+    bit, a's within SCORE_TOL (phase 3's hold; bit equality reported). The
+    row at each shard count's first edge (R - 1) is copied to row R, and
+    queries 0-2 are those rows: a tie across the edge, which must rank R - 1
+    first. Every kernel call of the two (a or b at N and at each shard's R
+    rows, the merge's c over the [Q, S * min(k, R)] candidates) is held to
+    its plain version on its own inputs (``hold_to_plain``), and the merge
+    must launch c once. Each call is timed with CUDA events (median of 20,
+    one device, sharded, sharded, one device) and replayed-graph device ms,
+    beside the sharded call's bound."""
+    import torch
+
+    from codesearch_tpu_torch.examples.ablate_head_packing import cuda_ms
+    from codesearch_tpu_torch.ops import fused_topk as ft
+    from codesearch_tpu_torch.ops.topk import quantize_rows_int8
+    from codesearch_tpu_torch.parallel import mesh as tmesh
+    from codesearch_tpu_torch.parallel import sharded_search as ss
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    c = torch.randn(n_rows, DIMS, generator=gen, device=device)
+    c = c / c.norm(dim=1, keepdim=True)
+    edges = [n_rows // s for s in MESH_SHARDS]
+    for r in edges:
+        c[r] = c[r - 1]
+    q9 = torch.randn(9, DIMS, generator=gen, device=device)
+    q9 = q9 / q9.norm(dim=1, keepdim=True)
+    q9[:len(edges)] = c[[r - 1 for r in edges]]
+    valid = torch.rand(n_rows, generator=gen, device=device) > 0.05
+    valid[[r - 1 for r in edges] + edges] = True
+    rows = {"fused_cosine_topk": (c.to(torch.bfloat16), valid),
+            "fused_cosine_topk_int8": (*quantize_rows_int8(c), valid)}
+    del c
+    calls = {"fused_cosine_topk": ss.sharded_cosine_topk,
+             "fused_cosine_topk_int8": ss.sharded_cosine_topk_int8}
+    n_valid = int(valid.sum())
+    out: dict = {}
+    for name, sharded_fn in calls.items():
+        int8 = name.endswith("int8")
+        args = rows[name]
+        for s in MESH_SHARDS:
+            mesh = tmesh.make_mesh(n_data=s, devices=[torch.device(device)] * s)
+            placed = [ss.ShardedTensor.place(t, mesh) for t in args]
+            r = n_rows // s
+            for q in (q9[:1], q9):
+                nq = q.shape[0]
+                with KernelInputs(clone=False) as rec:
+                    one = getattr(ft, name)(q, *args, 200)
+                    got = sharded_fn(q, *placed, 200)
+                # every kernel call of the two: the one-device call at n_rows,
+                # one a shard at R rows, the merge's c over [Q, S * min(200, R)]
+                held = [hold_to_plain(n, a) for n, a in rec.calls]
+                check([(n, list(a[0].shape) if n == "fused_scores_topk" else [a[1].shape[0]])
+                       for n, a in rec.calls]
+                      == [(name, [n_rows])] + [(name, [r])] * s
+                      + [("fused_scores_topk", [nq, s * min(200, r)])],
+                      f"sharded {name} over {s} shards made other kernel calls: "
+                      f"{[(n, [list(x.shape) for x in a if hasattr(x, 'shape')]) for n, a in rec.calls]}")
+                check(all(h["equal"] for h in held),
+                      f"a kernel call of sharded {name} over {s} shards (Q={nq}) disagrees with "
+                      f"its plain version: {held_by_kernel(held)}")
+                if device == "cuda":
+                    check(rec.c_launches["merge"] == 1,
+                          f"the merge of {s} shards launched c {rec.c_launches['merge']} times")
+                err = float((got[0] - one[0]).abs().max())
+                bits = torch.equal(got[0], one[0])
+                check(torch.equal(got[1], one[1]),
+                      f"sharded {name} over {s} shards ranks other rows than one device (Q={nq})")
+                check(bits if int8 else err <= SCORE_TOL,
+                      f"sharded {name} over {s} shards: scores off by {err} (Q={nq})")
+                tie = MESH_SHARDS.index(s)
+                if tie < nq:
+                    check(got[1][tie, :2].tolist() == [r - 1, r],
+                          f"the tie across the edge of {s} shards ranks {got[1][tie, :2].tolist()}")
+                row = {"max_abs_err": err, "bit_equal": bits,
+                       "held_to_plain": held_by_kernel(held)}
+                if device == "cuda":
+                    one_call = lambda q=q: getattr(ft, name)(q, *args, 200)  # noqa: E731
+                    sh_call = lambda q=q: sharded_fn(q, *placed, 200)  # noqa: E731
+                    t_one_1, t_sh_1 = cuda_ms(one_call), cuda_ms(sh_call)
+                    t_sh_2, t_one_2 = cuda_ms(sh_call), cuda_ms(one_call)
+                    kk = min(200, r)
+                    row.update(
+                        ms=min(t_sh_1, t_sh_2), one_device_ms=min(t_one_1, t_one_2),
+                        device_ms=device_ms(sh_call), one_device_device_ms=device_ms(one_call),
+                        **bound(n_valid * (DIMS + 4 if int8 else 2 * DIMS) + n_rows
+                                + nq * DIMS * 4 + 2 * s * nq * kk * 8 + nq * 200 * 8,
+                                2 * nq * n_valid * DIMS, "int8" if int8 else "bf16"))
+                out.setdefault(name, {})[f"S={s} Q={nq}"] = row
+                log(f"phase 13 direct {name} N={n_rows} S={s} Q={nq} k=200: {json.dumps(row)}")
+        del placed
+    return out
+
+
+def mesh_queries(session, device: str) -> dict:
+    """Ranked (chunk id, score) lists and wall ms of phase 5's hybrid, vector
+    and identifier queries, then of one WAVE_QUERIES wave (64) through
+    ``search_many``."""
+    from codesearch_tpu_torch.search import SearchOptions
+
+    out: dict = {"hits": [], "ms": {}}
+    for qtype, qs in (("hybrid", HYBRID_QUERIES[:4]), ("vector", VECTOR_QUERIES[:2]),
+                      ("identifier", IDENT_QUERIES[:2])):
+        for q in qs:
+            _sync(device)
+            t = time.perf_counter()
+            resp = session.search(q, SearchOptions(limit=10, mode="vector" if qtype == "vector"
+                                                   else "hybrid"))
+            out["ms"].setdefault(qtype, []).append((time.perf_counter() - t) * 1000)
+            check(resp.hits, f"no hits for {q!r}")
+            out["hits"].append([(h.chunk_id, h.score) for h in resp.hits])
+    _sync(device)
+    t = time.perf_counter()
+    wave = session.search_many(WAVE_QUERIES, SearchOptions(limit=SERVE_LIMIT))
+    out["wave_ms"] = (time.perf_counter() - t) * 1000
+    out["wave"] = [[(h.chunk_id, h.score) for h in r.hits] for r in wave]
+    out["p50_ms"] = {k: statistics.median(v) for k, v in out["ms"].items()}
+    return out
+
+
+def mesh_sessions(work: Path, device: str, mesh) -> dict:
+    """``mesh_queries`` of phase 5's and phase 7's indexes, bf16 and int8,
+    each through a new session (sharded when ``mesh`` is installed)."""
+    import torch
+
+    from codesearch_tpu_torch.parallel.sharded_search import ShardedTensor
+
+    out = {}
+    for model, name in MESH_DBS:
+        for int8 in (False, True):
+            set_int8(work / name, int8)
+            opened = open_session(work / name, device)
+            session = opened.pop("session")
+            kind, mat = session.store._device[0], session.store._device[1]
+            check(kind == ("int8" if int8 else "bf16"), f"{name} opened as {kind}")
+            if mesh is not None:
+                check(isinstance(mat, ShardedTensor) and len(mat.shards) == mesh.shape["data"]
+                      and session.fts._resident_device() == mesh.lead,
+                      f"the {name} session is not on the mesh")
+            else:
+                check(isinstance(mat, torch.Tensor), f"the {name} session is sharded")
+            out[(model, int8)] = {**mesh_queries(session, device), **opened}
+            del session, mat
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phase(work: Path, device: str, self_index: dict, n_rows: int = MESH_ROWS) -> dict:
+    """Phase 13: (a) ``mesh_direct``; (b) phase 5's and 7's indexes through
+    sessions on a mesh of MESH_PRODUCT_SHARDS shards of the card, ranked as
+    one-device sessions bit for bit; (c) ``dp_embed_features`` over the
+    port's sources' chunks against ``embed_features`` (1e-5), ``dp_encode`` of
+    bge-small on MESH_DP_CHUNKS chunks at bucket 512 against one-device
+    ``encode`` (cosine >= EMBED_COS_MIN, the same top-10 neighbours off
+    near-ties) and an ``index`` of the port's sources on the mesh (phase 4's
+    chunk count and CLI hits). The one-device references run first; then the
+    counts go to 0 and (b) and (c) run on the mesh as the path "sharded":
+    a or b once a shard a query, c once a query for the merge (counted
+    apart from the BM25 legs' c), d 12 x 4 a ``dp_encode`` batch; no plain
+    version and no ``torch.topk``. After the window every a, b and c call
+    of (b) and (c) is held to its plain version on its own inputs."""
+    import numpy as np
+    import torch
+
+    from codesearch_tpu_torch.embed import EmbeddingService
+    from codesearch_tpu_torch.embed import service as esvc
+    from codesearch_tpu_torch.index import IndexOptions, index
+    from codesearch_tpu_torch.models.hash_embedder import batch_features, embed_features
+    from codesearch_tpu_torch.ops import attention as att
+    from codesearch_tpu_torch.parallel import mesh as tmesh
+    from codesearch_tpu_torch.parallel.dp_embed import dp_embed_features, dp_encode
+    from codesearch_tpu_torch.search import SearchOptions, SearchSession
+    from codesearch_tpu_torch.utils.constants import get_embedding_cache_dir
+    from codesearch_tpu_torch.vectordb import VectorStore
+
+    t0 = time.perf_counter()
+    _peak_reset(device)
+    out: dict = {"direct": mesh_direct(device, n_rows)}
+    _sync(device)
+    out["direct_s"] = time.perf_counter() - t0
+
+    # one-device references
+    ref = mesh_sessions(work, device, None)
+    texts = [m.content for _, m in VectorStore(work / "self-db-code-hash-384", dims=DIMS,
+                                               readonly=True, device="cpu").iter_chunks()]
+    feats = [batch_features(texts[a:a + 1024]) for a in range(0, len(texts), 1024)]
+    table = EmbeddingService("code-hash-384", use_persistent_cache=False,
+                             device=device).backend.model.table
+    dev = torch.device(device)
+    single = torch.cat([embed_features(table, torch.from_numpy(i).to(dev),
+                                       torch.from_numpy(w).to(dev)) for i, w in feats]).cpu()
+    encoder = EmbeddingService(BERT_MODEL, use_persistent_cache=False,
+                               device=device).backend.encoder
+    gen = torch.Generator().manual_seed(13)
+    ids = torch.randint(1000, encoder.cfg.vocab_size, (MESH_DP_CHUNKS, 512), generator=gen)
+    lens = torch.randint(257, 513, (MESH_DP_CHUNKS,), generator=gen)
+    mask = (torch.arange(512)[None, :] < lens[:, None]).to(torch.int32)
+    ids, mask = ids.int().numpy(), mask.numpy()
+    one_enc = encoder.encode(torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)).cpu()
+    shutil.rmtree(get_embedding_cache_dir("code-hash-384-torch"), ignore_errors=True)
+
+    mesh = tmesh.make_mesh(n_data=MESH_PRODUCT_SHARDS, devices=[dev] * MESH_PRODUCT_SHARDS)
+    dp_calls = []
+    real_dp = esvc.embed_feature_shards
+    esvc.embed_feature_shards = lambda *a, **kw: dp_calls.append(1) or real_dp(*a, **kw)
+    try:
+        # the window writes no recorded input after its call (the sessions
+        # only read; ``index`` writes its store before its one search), so
+        # the inputs are held by reference, not cloned
+        with PlainCalls() as plain, TopkCalls() as topk, mesh_installed(mesh), \
+                KernelInputs(clone=False) as recorded:
+            reset_counts()
+            sharded = mesh_sessions(work, device, mesh)
+            dp = np.concatenate([dp_embed_features(table, i, w, mesh) for i, w in feats])
+            d0 = att.launch_counts["attention_full"]
+            dp_enc = torch.from_numpy(dp_encode(encoder, ids, mask, mesh))
+            d_dp = att.launch_counts["attention_full"] - d0
+            t = time.perf_counter()
+            stats = index(ROOT / "codesearch_tpu_torch",
+                          IndexOptions(store_path=work / "mesh-self-db", quiet=True),
+                          device=device)
+            index_s = time.perf_counter() - t
+            session = SearchSession(work / "mesh-self-db", device=device)
+            self_hits = [(h.path, h.start_line + 1, round(h.score, 4)) for h in
+                         session.search(SELF_QUERY, SearchOptions(limit=5)).hits]
+            out["launches"] = {"sharded": launch_counts()}
+    finally:
+        esvc.embed_feature_shards = real_dp
+    # every a, b and c call of the window against its plain version
+    held = [hold_to_plain(n, a) for n, a in recorded.calls]
+    out["held_to_plain"] = held_by_kernel(held)
+    out["c_launches_by_site"] = dict(recorded.c_launches)
+    del recorded
+    _sync(device)
+    out["seconds"] = time.perf_counter() - t0
+    out["peak_mb"] = _peak_mb(device)
+
+    counts = out["launches"]["sharded"]
+    log(f"phase 13 launches on the path 'sharded': {counts}; c by site "
+        f"{out['c_launches_by_site']}; plain versions called {dict(plain.calls)}; torch.topk "
+        f"calls {topk.calls}")
+    log(f"phase 13 kernel calls held to their plain versions: {json.dumps(out['held_to_plain'])}")
+    check(topk.calls == 0, f"torch.topk ran on the mesh path ({topk.calls} calls)")
+    check(all(h["equal"] for h in held),
+          "a kernel call of the mesh path disagrees with its plain version")
+    for (model, int8), got in sharded.items():
+        want = ref[(model, int8)]
+        tag = f"{model} {'int8' if int8 else 'bf16'}"
+        same = got["hits"] == want["hits"] and got["wave"] == want["wave"]
+        log(f"phase 13 {tag}: sharded p50 ms {got['p50_ms']} (one device {want['p50_ms']}); "
+            f"64-query wave {got['wave_ms']:.2f} ms (one device {want['wave_ms']:.2f}); open "
+            f"{got['open_s']:.2f} s + first query {got['first_query_s']:.2f} s; the same ranked "
+            f"hits, scores bit for bit: {same}")
+        check(same, f"the sharded {tag} session ranks other hits than one device")
+        out[f"{tag} p50_ms"] = {"sharded": got["p50_ms"], "one_device": want["p50_ms"],
+                                "wave_sharded": got["wave_ms"], "wave_one_device": want["wave_ms"]}
+    if device == "cuda":   # the launch gates (the CPU runs the plain versions)
+        # every session call (the probe, the queries, the wave) is one
+        # sharded top-k: a or b once a shard, c once for the merge
+        n_bf16 = sum(len(v["hits"]) + 2 for (_, i8), v in sharded.items() if not i8)
+        n_int8 = sum(len(v["hits"]) + 2 for (_, i8), v in sharded.items() if i8)
+        s = MESH_PRODUCT_SHARDS
+        check(not plain.calls, f"plain versions ran on the mesh path: {dict(plain.calls)}")
+        check(counts["fused_cosine_topk"] >= s * n_bf16
+              and counts["fused_cosine_topk_int8"] >= s * n_int8,
+              f"a or b launched fewer than {s} times a query: {counts}")
+        merges = out["c_launches_by_site"]["merge"]
+        check(merges >= n_bf16 + n_int8, f"the merge launched c {merges} times, fewer than "
+              f"once a query ({n_bf16 + n_int8})")
+        check(counts["fused_cosine_topk"] + counts["fused_cosine_topk_int8"] == s * merges,
+              f"a and b launched other than {s} times a merge: {counts}, {merges} merges")
+        check(d_dp == BERT_LAYERS * s, f"dp_encode launched attention_full {d_dp} times, "
+              f"not {BERT_LAYERS} x {s}")
+
+    dp_err = float(np.abs(dp - single.numpy()).max())
+    cos = torch.nn.functional.cosine_similarity(dp_enc.double(), one_enc.double(), dim=1)
+    # the top-10 neighbours of each chunk among the one-device embeddings, by
+    # its dp and by its one-device embedding, equal off near-ties: two
+    # neighbours closer than the largest score difference the two
+    # embeddings make may swap
+    ref_scores = one_enc.double() @ one_enc.double().T
+    dp_scores = dp_enc.double() @ one_enc.double().T
+    tol = float((dp_scores - ref_scores).abs().max())
+    rv, ri = torch.sort(ref_scores, dim=1, descending=True, stable=True)
+    dv, di = torch.sort(dp_scores, dim=1, descending=True, stable=True)
+    gap = (rv[:, :10] - rv[:, 1:11]).abs() > 2 * tol
+    clear = gap.clone()
+    clear[:, 1:] &= gap[:, :-1]
+    nb_mism = int(((di[:, :10] != ri[:, :10]) & clear).sum())
+    out["dp"] = {"embed_features_max_abs_err": dp_err, "texts": len(texts),
+                 "embed_feature_shards_calls_while_indexing": len(dp_calls),
+                 "dp_encode_min_cosine": float(cos.min()), "dp_encode_bit_equal":
+                 torch.equal(dp_enc, one_enc), "neighbour_score_tol": tol,
+                 "neighbour_mismatches_off_near_ties": nb_mism,
+                 "attention_full_per_dp_encode": d_dp, "index_s": index_s,
+                 "index_chunks": stats.chunks_added, "phase4_chunks": self_index["chunks"]}
+    log(f"phase 13 data-parallel embedding: {json.dumps(out['dp'])}")
+    log(f"phase 13 index on the mesh: hits {self_hits}; phase 4's CLI {self_index['hits']}")
+    check(dp_err <= 1e-5, f"dp_embed_features is off embed_features by {dp_err}")
+    check(float(cos.min()) >= EMBED_COS_MIN and nb_mism == 0,
+          "dp_encode disagrees with the one-device encode")
+    check(len(dp_calls) > 0, "indexing on the mesh never sharded its embed batches")
+    check(stats.chunks_added == self_index["chunks"] and self_hits == [tuple(h) for h in
+                                                                       self_index["hits"]],
+          "the index on the mesh differs from phase 4's")
+    log(f"phase 13 seconds: {out['seconds']:.2f} (direct {out['direct_s']:.2f}); peak MB "
+        f"{out['peak_mb']}")
     return out
 
 
@@ -2928,7 +3337,7 @@ def main() -> int:
         timing = kernel_checks("cuda")
         timing.update(attention_checks("cuda"))
         grads = attention_grad_checks("cuda")
-        repo_index_and_cli(work, "cuda")
+        self_index = repo_index_and_cli(work, "cuda")
         synthetic_session(work, N_ROWS, "cuda", cpu_check=True)
         from codesearch_tpu_torch.ops import attention as att
 
@@ -2947,9 +3356,13 @@ def main() -> int:
         t = time.perf_counter()
         cli = cli_phase(work, "cuda")
         log(f"phase 12 seconds: {time.perf_counter() - t:.2f} ({smi})")
+        mesh = mesh_phase(work, "cuda", self_index)
+        log(f"phase 13 results ({smi}): {json.dumps(mesh, default=str)}")
         timing["attention_full"]["rotary_shapes"] = family["d_at_rotary_shapes"]
         timing["attention_full"]["training_shapes"] = grads["attention_full"]
         timing["attention_flash"]["training_shapes"] = grads["attention_flash"]
+        for name in ("fused_cosine_topk", "fused_cosine_topk_int8"):
+            timing[name]["sharded"] = mesh["direct"][name]
         kernels = []
         # launches: phase 7's counted paths, bge-small's index, its bf16 and
         # int8 queries (the "search" route) and the direct S=2048 call of the
@@ -2957,9 +3370,11 @@ def main() -> int:
         # 9's (the waves, MCP, HTTP) and phase 10's (Nomic, ModernBERT,
         # rerank), phase 11's (train and the searches after it, train
         # --cross-encoder and the reranked searches, the contrastive steps)
-        # and phase 12's (search --all-repos), each counted on its own
+        # phase 12's (search --all-repos) and phase 13's (the sessions, the
+        # data-parallel embedding and the index on a mesh: "sharded"), each
+        # counted on its own
         paths = {**bert["launches"], **served["launches"], **family["launches"],
-                 **trained["launches"], **cli["launches"]}
+                 **trained["launches"], **cli["launches"], **mesh["launches"]}
         for name, via in (("fused_cosine_topk", "search"), ("fused_cosine_topk_int8", "search"),
                           ("fused_scores_topk", "search"), ("attention_full", "search"),
                           ("attention_flash", "direct")):
@@ -2975,6 +3390,10 @@ def main() -> int:
                         "launches_by_path": {"ablation": ablation["attention_packed"]},
                         **timing["attention_packed"]})
         check(all(k["launches"] > 0 for k in kernels), "a kernel of the path never launched")
+        check(all(k["launches_by_path"].get("sharded", 0) > 0 for k in kernels
+                  if k["name"] in ("fused_cosine_topk", "fused_cosine_topk_int8",
+                                   "fused_scores_topk", "attention_full")),
+              "a kernel of the sharded path never launched there")
         jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
                                                                          "codesearch_tpu"))
         check(not jax_side, f"jax or the JAX package was imported: {jax_side[:5]}")

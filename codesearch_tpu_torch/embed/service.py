@@ -10,7 +10,10 @@ backend that turns texts into vectors runs on ``device``: the hash embedder
 for hash models, the encoder (``models/encoder.py``: BERT, Nomic and
 ModernBERT; attention kernels d and e on CUDA, ModernBERT's local layers
 through the composed windowed attention) for every other registry model,
-tokenized on the host into power-of-two token buckets.
+tokenized on the host into power-of-two token buckets. On a corpus mesh
+(``parallel.mesh.corpus_mesh``) both backends shard their embed batches
+over the mesh's "data" axis (``parallel.dp_embed``), the model copied once
+to each distinct device.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from ..models import encoder as enc
 from ..models.hash_embedder import HashEmbedder, batch_features, embed_features
 from ..models.registry import DEFAULT_MODEL, ModelSpec, parse_model
 from ..models.tokenizer import load_tokenizer
+from ..parallel.dp_embed import embed_feature_shards, encode_shards, replicate
+from ..parallel.mesh import mesh_for
 from ..utils.constants import get_embedding_cache_dir, get_global_models_cache_dir
 from ..utils.device import resolve_device, to_host
 from ..utils.hashing import sha256_file
@@ -104,11 +109,16 @@ def clean_docstring(doc: str) -> str:
 
 
 class _HashBackend:
-    """Hash-model backend: host featurization, device gather + weighted sum."""
+    """Hash-model backend: host featurization, device gather + weighted sum.
+    On a mesh, batches of at least two rows a shard split over the shards
+    (``embed_feature_shards``, the table copied once to each distinct
+    device); queries embed on the lead device's table."""
 
     def __init__(self, spec: ModelSpec, table_path: Path | None = None, device=None):
         self.spec = spec
         self.model = HashEmbedder(spec.dims, table_path=table_path, device=device)
+        self.mesh = mesh_for(self.model.device)
+        self.tables = replicate(self.model.table, self.mesh) if self.mesh else None
 
     def embed_async(self, texts: list[str], half_transfer: bool = False):
         """Featurize and launch now; the returned callable waits for the
@@ -117,6 +127,19 @@ class _HashBackend:
         rows anyway)."""
         if not texts:
             return lambda: np.zeros((0, self.spec.dims), np.float32)
+        if self.mesh is not None and len(texts) >= 2 * self.mesh.shape["data"]:
+            pending = []
+            for a in range(0, len(texts), EMBED_BATCH):
+                ids, ws = batch_features(texts[a:a + EMBED_BATCH])
+                outs = embed_feature_shards(self.tables, ids, ws, self.mesh)
+                pending.append((len(ids), [o.half() for o in outs] if half_transfer else outs))
+
+            def finish() -> np.ndarray:
+                hosts = iter(to_host(*(o for _, outs in pending for o in outs)))
+                return np.concatenate([np.concatenate([next(hosts) for _ in outs])[:n]
+                                       for n, outs in pending]).astype(np.float32)
+
+            return finish
         dev = self.model.device
         outs = []
         for a in range(0, len(texts), EMBED_BATCH):
@@ -135,7 +158,9 @@ class _BertBackend:
     """Encoder backend (every family of the registry): host tokenization
     into power-of-two token buckets (16..512), device batches of
     ``_default_batch_size`` texts (256 at d <= 384, 128 at 768, 64 above)
-    through ``BertEncoder.encode``. Weights: ``model.safetensors``
+    through ``BertEncoder.encode``; on a mesh, batches of that many texts a
+    shard split over the shards (``encode_shards``, the encoder copied once
+    to each distinct device). Weights: ``model.safetensors``
     in the models cache when present, else the JAX package's random init,
     regenerated in numpy and cached."""
 
@@ -155,6 +180,8 @@ class _BertBackend:
                         "of the JAX package (place model.safetensors under %s)",
                         spec.short_name, model_dir)
         self.encoder = enc.BertEncoder(self.cfg, params, device=resolve_device(device))
+        self.mesh = mesh_for(self.encoder.device)
+        self.encoders = replicate(self.encoder, self.mesh) if self.mesh else None
         # texts, real tokens and padded tokens sent through the encoder
         self.counts = {"texts": 0, "tokens": 0, "padded_tokens": 0}
 
@@ -191,7 +218,9 @@ class _BertBackend:
         encs = [self.tokenizer.encode(t) for t in texts]
         order = sorted(range(len(encs)), key=lambda i: len(encs[i].ids))
         bs = _default_batch_size(self.spec.dims)
-        pending: list[tuple[list[int], torch.Tensor]] = []
+        if self.mesh is not None:
+            bs *= self.mesh.shape["data"]
+        pending: list[tuple[list[int], list[torch.Tensor]]] = []
         for a in range(0, len(order), bs):
             batch_idx = order[a:a + bs]
             max_len = self._bucket(max(len(encs[i].ids) for i in batch_idx))
@@ -201,17 +230,22 @@ class _BertBackend:
                 n = min(len(encs[i].ids), max_len)
                 ids[row, :n] = encs[i].ids[:n]
                 mask[row, :n] = 1
-            vecs = self.encoder.encode(torch.from_numpy(ids).to(dev),
-                                       torch.from_numpy(mask).to(dev))
-            pending.append((batch_idx, vecs.half() if half_transfer else vecs))
+            if self.mesh is not None:
+                vecs = encode_shards(self.encoders, ids, mask, self.mesh)
+            else:
+                vecs = [self.encoder.encode(torch.from_numpy(ids).to(dev),
+                                            torch.from_numpy(mask).to(dev))]
+            pending.append((batch_idx, [v.half() for v in vecs] if half_transfer else vecs))
             self.counts["texts"] += len(batch_idx)
             self.counts["tokens"] += int(mask.sum())
             self.counts["padded_tokens"] += mask.size
 
         def finish() -> np.ndarray:
             out = np.zeros((len(texts), self.spec.dims), np.float32)
-            for (batch_idx, _), host in zip(pending, to_host(*(v for _, v in pending))):
-                out[batch_idx] = host.astype(np.float32)
+            hosts = iter(to_host(*(v for _, vecs in pending for v in vecs)))
+            for batch_idx, vecs in pending:
+                rows = np.concatenate([next(hosts) for _ in vecs])
+                out[batch_idx] = rows[:len(batch_idx)].astype(np.float32)
             return out
 
         return finish

@@ -25,12 +25,13 @@ host core:
   point; crash leftovers are pruned. The files are byte for byte those of
   the JAX package, so either package opens the other's index.
 - Scoring: the postings (``p_pos``, ``p_w``) and the packed kind|liveness
-  table (``slot_meta``) live resident as torch tensors on ``device``,
-  grow by in-place writes, and are scored by ``ops/bm25.py`` (kernel c on
-  CUDA); a query ships only its terms' CHUNK-aligned CSR intervals. High-df
-  terms score through resident score planes built by ``plane_write_rows``.
-  Small corpora score on host (np.bincount). The routing rules, capacity
-  triggers and plane memory knobs keep the JAX store's values.
+  table (``slot_meta``) live resident as torch tensors on ``device`` (on a
+  corpus mesh: its lead device), grow by in-place writes, and are scored
+  by ``ops/bm25.py`` (kernel c on CUDA); a query ships only its terms'
+  CHUNK-aligned CSR intervals. High-df terms score through resident score
+  planes built by ``plane_write_rows``. Small corpora score on host
+  (np.bincount). The routing rules, capacity triggers and plane memory
+  knobs keep the JAX store's values.
 
 Query semantics parity:
 - ``search``: BM25 with signature terms boosted ×2 and a ×3 score boost for
@@ -58,6 +59,7 @@ import numpy as np
 import torch
 
 from ..models.tokenizer import code_tokens
+from ..parallel.mesh import mesh_for
 from ..utils.hashing import stable_u64
 from ..utils.logger import get_logger
 from ..ops.bm25 import (
@@ -1269,12 +1271,20 @@ class FtsStore:
 
     # ---- placement -----------------------------------------------------------
 
+    def _resident_device(self) -> torch.device:
+        """Where the resident arrays live: ``device``, or the lead device of
+        the corpus mesh when there is one (BM25 runs once, there; the JAX
+        package replicates them over the mesh only to read them inside one
+        SPMD program)."""
+        mesh = mesh_for(self.device)
+        return self.device if mesh is None else mesh.lead
+
     def _place_repl(self, host_arr: np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(host_arr)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(host_arr)).to(self._resident_device())
 
     def _full_repl(self, shape, fill, dtype):
         return torch.full(shape, fill, dtype=_TORCH_DTYPES[np.dtype(dtype)],
-                          device=self.device)
+                          device=self._resident_device())
 
     def _seg_bulk(self, seg: Segment):
         """(dnums, tfc, tfs) for a whole segment. For file-backed segments,

@@ -34,11 +34,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 def to_host(*tensors):
-    """Numpy copies of device tensors with ONE wait for the device: every
-    copy is queued first, then the stream is synchronised once. Numpy
-    arrays pass through."""
+    """Numpy copies of device tensors with ONE wait for each device: every
+    copy is queued first, then each device's stream is synchronised once.
+    Numpy arrays pass through."""
     outs = [t.to("cpu", non_blocking=True) if isinstance(t, torch.Tensor) else t
             for t in tensors]
-    if any(isinstance(t, torch.Tensor) and t.is_cuda for t in tensors):
-        torch.cuda.current_stream().synchronize()
+    for dev in {t.device for t in tensors if isinstance(t, torch.Tensor) and t.is_cuda}:
+        torch.cuda.current_stream(dev).synchronize()
     return [o.numpy() if isinstance(o, torch.Tensor) else o for o in outs]

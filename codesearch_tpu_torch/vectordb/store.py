@@ -6,7 +6,11 @@ The corpus is one preallocated ``[capacity, dims]`` tensor on ``device``
 exact fused matmul + top-k (kernels a and b on CUDA) — so ``build_index``
 is O(1), insert is an in-place slab write, and delete clears validity
 bits. Score = cosine similarity (reference's ``1 - distance``,
-store.rs:478). There is no device mesh: the port runs on one device.
+store.rs:478). On a corpus mesh (``parallel.mesh.corpus_mesh``: two or more
+CUDA devices) the matrix, scales and mask split their rows over the mesh's
+"data" axis (``parallel.sharded_search.ShardedTensor``, capacity a multiple
+of ``SHARD_ALIGN`` rows a shard), and ``ops.topk`` answers every search
+over it with the sharded top-k: the same hits as on one device.
 
 Host persistence has the same O(change) cost as the reference's
 incremental write txns (store.rs:618-651): per generation, an append-only
@@ -70,6 +74,8 @@ from ..ops.query_pipeline import (
     hash_embed_search_int8,
 )
 from ..ops.topk import cosine_topk, cosine_topk_int8
+from ..parallel.mesh import mesh_for
+from ..parallel.sharded_search import ShardedTensor
 from ..utils.device import resolve_device, to_host
 from ..utils.constants import (
     HOST_PATH_ROWS,
@@ -95,6 +101,9 @@ META_LRU_ENTRIES = int(os.environ.get("CODESEARCH_VEC_META_LRU", 8192))
 UPLOAD_BLOCK = 1 << 17
 # recent-append cid→row dict entries before folding into the sorted index
 EXTRAS_MAX = 1 << 18
+# device rows a shard is padded to a multiple of: keeps every shard's
+# views of the matrix, scales and mask 16-byte aligned for the kernels
+SHARD_ALIGN = 16
 
 # fixed-width sidecar record: one per row, appended in row order
 ROWIDX_DTYPE = np.dtype(
@@ -218,6 +227,7 @@ class VectorStore:
 
         # device state: matrix + validity mask kept in sync incrementally
         self._device = None                # (kind, mat, scale, valid)
+        self._dev_mesh = None              # the mesh it is sharded over
         self._dev_rows = 0
         self._dev_pending_del: list[int] = []
         self.full_uploads = 0              # diagnostics (tests assert
@@ -996,36 +1006,51 @@ class VectorStore:
     # device state + search
     # ------------------------------------------------------------------
 
-    def _zeros(self, shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=self.device)
+    def _mesh(self):
+        """The corpus mesh of this store's device type (None on one device):
+        with one, the matrix rows split over the "data" axis."""
+        return mesh_for(self.device)
 
-    def _device_cap(self, n: int) -> int:
+    def _zeros(self, shape, dtype, mesh):
+        if mesh is None:
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        return ShardedTensor.zeros(shape, dtype, mesh)
+
+    def _device_cap(self, n: int, mesh) -> int:
         """Padded device capacity: a power of two, at least
-        VEC_INITIAL_CAPACITY, so appends rarely force a full upload."""
-        return max(VEC_INITIAL_CAPACITY, 1 << max(0, (n - 1).bit_length()))
+        VEC_INITIAL_CAPACITY, so appends rarely force a full upload; a
+        multiple of ``SHARD_ALIGN`` rows a shard on a mesh."""
+        cap = max(VEC_INITIAL_CAPACITY, 1 << max(0, (n - 1).bit_length()))
+        if mesh is not None:
+            step = mesh.shape["data"] * SHARD_ALIGN
+            cap = -(-cap // step) * step
+        return cap
 
     def _upload_full(self):
-        """Full upload at padded capacity, streamed in UPLOAD_BLOCK-row slabs
-        so host memory stays bounded by one slab."""
+        """Full upload at padded capacity (sharded over the corpus mesh when
+        there is one), streamed in UPLOAD_BLOCK-row slabs so host memory
+        stays bounded by one slab."""
         n = self._rows
-        cap = self._device_cap(n)
+        mesh = self._mesh()
+        cap = self._device_cap(n, mesh)
         valid_all = self._used_valid()
-        vmask = self._zeros((cap,), torch.bool)
+        vmask = self._zeros((cap,), torch.bool, mesh)
         if self.int8:
-            mat = self._zeros((cap, self.dims), torch.int8)
-            scale = self._zeros((cap,), torch.float32)
+            mat = self._zeros((cap, self.dims), torch.int8, mesh)
+            scale = self._zeros((cap,), torch.float32, mesh)
             for b in range(0, n, UPLOAD_BLOCK):
                 hi = min(b + UPLOAD_BLOCK, n)
                 mat, scale, vmask = device_ops.insert_rows_int8(
                     mat, scale, vmask, self._read_rows_io(b, hi), valid_all[b:hi], b)
             self._device = ("int8", mat, scale, vmask)
         else:
-            mat = self._zeros((cap, self.dims), torch.bfloat16)
+            mat = self._zeros((cap, self.dims), torch.bfloat16, mesh)
             for b in range(0, n, UPLOAD_BLOCK):
                 hi = min(b + UPLOAD_BLOCK, n)
                 mat, vmask = device_ops.insert_rows(
                     mat, vmask, self._read_rows_io(b, hi), valid_all[b:hi], b)
             self._device = ("bf16", mat, None, vmask)
+        self._dev_mesh = mesh
         self._dev_rows = n
         self._dev_pending_del = []
         self.full_uploads += 1
@@ -1033,10 +1058,11 @@ class VectorStore:
 
     def _ensure_device(self):
         """Sync device state with the host: appended rows are written in
-        place, deletes clear validity bits; a full upload happens only when
-        capacity overflows or after compaction."""
+        place (split at shard edges on a mesh), deletes clear validity bits;
+        a full upload happens only when capacity overflows, after compaction
+        or when the corpus mesh changed."""
         with self._lock:
-            if self._device is None:
+            if self._device is None or self._dev_mesh is not self._mesh():
                 return self._upload_full()
             kind, mat, scale, valid = self._device
             cap = mat.shape[0]
@@ -1354,7 +1380,8 @@ class VectorStore:
     def stats(self) -> StoreStats:
         """Live rows against allocated rows (``tombstones`` the difference),
         the device matrix's bytes at this store's width (1 byte an entry
-        int8, 2 bf16) and the current generation's file bytes."""
+        int8, 2 bf16; on a mesh the shards hold the rows between them, so
+        their sum is the same) and the current generation's file bytes."""
         with self._lock:
             nv = int(self._valid.view().sum())
             rows = self._rows
