@@ -140,7 +140,25 @@ when any phase fails:
    plain version and no ``torch.topk`` called; the merge's c launches are
    counted apart from the BM25 legs', and every a, b and c call of the
    phase (each shard's, the one-device call's and each merge's) is held
-   against its plain version on its own inputs.
+   against its plain version on its own inputs;
+14. the training mesh (``codesearch_tpu_torch.parallel.train_mesh``,
+   ``parallel.launch``): bge-small as registered, phase 11c's ten timed
+   batches (64 at ``max_len`` 128), first through the one-device
+   ``make_train_step`` (the reference), then (a) a 1 x 1 mesh over NCCL in
+   this process, its losses and parameters bit for bit the reference's, and
+   (b) a 2 x 2 mesh of four spawned ranks on the one card over gloo: rank
+   0's first loss within 1e-2 of the reference's and every loss within
+   5e-2, each of the first step's gathered gradients at cosine 0.99, its
+   norm within 3e-2 and its relative L2 error within 0.15 of the
+   reference's, the gathered parameters within 2 x steps x lr and each
+   parameter's update within 0.5 relative L2 error (a witness, the
+   reference's steps with d's plain version forward, is logged beside:
+   how far a last-bit difference carries); on every rank kernel d 24 times
+   a step on its 6 local
+   heads, as many recomputes, no other plain version, its first d call
+   equal to its plain version, nothing of the JAX side imported. d's
+   launches of (a) and (b) are the path "train_mesh", and d is timed at the
+   local-head shape (B=32, H=6, S=128, Dh=32).
 
 Beside each kernel's time (CUDA events around one call) it prints its
 bound on the card (the larger of the bytes it must move over 3.35 TB/s and
@@ -2558,6 +2576,26 @@ def _grad_cosines(a, b) -> dict:
     return out
 
 
+def contrastive_batches(work: Path) -> tuple:
+    """(bge-small's config, CONTRASTIVE_STEPS + 3 batches of the pairs mined
+    from phase 4's index, CONTRASTIVE_BATCH at ``max_len`` CONTRASTIVE_LEN):
+    11c holds the first to the CPU and times the next CONTRASTIVE_STEPS,
+    which phase 14 takes too."""
+    import itertools
+
+    from codesearch_tpu_torch.models import parse_model
+    from codesearch_tpu_torch.models.tokenizer import load_tokenizer
+    from codesearch_tpu_torch.train.data import batches
+
+    cfg = parse_model(BERT_MODEL).arch
+    tok = load_tokenizer(None, lowercase=True, max_len=CONTRASTIVE_LEN, vocab_size=cfg.vocab_size)
+    pairs = _mined(work / "self-db-code-hash-384", "cpu")
+    data = list(itertools.islice(batches(pairs, tok, CONTRASTIVE_BATCH, CONTRASTIVE_LEN, seed=0),
+                                 CONTRASTIVE_STEPS + 3))
+    check(len(data) == CONTRASTIVE_STEPS + 3, f"only {len(data)} batches of mined pairs")
+    return cfg, data
+
+
 def contrastive_phase(work: Path, device: str) -> dict:
     """11c: InfoNCE steps on bge-small as registered (12 layers, 384, 12
     heads of 32, its init from seed 0), batch 64 of mined pairs at
@@ -2569,23 +2607,13 @@ def contrastive_phase(work: Path, device: str) -> dict:
     profiled pair of steps for the device time of d, of the backward
     recomputes and of the optimizer; the first batch's loss lower after the
     steps."""
-    import itertools
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from codesearch_tpu_torch.models import parse_model
-    from codesearch_tpu_torch.models.tokenizer import load_tokenizer
     from codesearch_tpu_torch.train.contrastive import (info_nce_loss, make_train_state,
                                                         make_train_step)
-    from codesearch_tpu_torch.train.data import batches
 
-    cfg = parse_model(BERT_MODEL).arch
-    tok = load_tokenizer(None, lowercase=True, max_len=CONTRASTIVE_LEN, vocab_size=cfg.vocab_size)
-    pairs = _mined(work / "self-db-code-hash-384", "cpu")
-    data = list(itertools.islice(batches(pairs, tok, CONTRASTIVE_BATCH, CONTRASTIVE_LEN, seed=0),
-                                 CONTRASTIVE_STEPS + 3))
-    check(len(data) == CONTRASTIVE_STEPS + 3, f"only {len(data)} batches of mined pairs")
+    cfg, data = contrastive_batches(work)
     model, opt = make_train_state(cfg, device=device, seed=0)
     ref_model, ref_opt = make_train_state(cfg, device="cpu", seed=0)
     step, ref_step = make_train_step(cfg, opt), make_train_step(cfg, ref_opt)
@@ -3283,6 +3311,339 @@ def mesh_phase(work: Path, device: str, self_index: dict, n_rows: int = MESH_ROW
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the training mesh on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH = (2, 2)             # (n_data, n_model) of (b): four ranks on the one card
+TRAIN_MESH_TIMEOUT_S = 300
+ADAM_BOUND = 2 * CONTRASTIVE_STEPS * 1e-4   # 2 x steps x lr: the parameters' drift
+# (b) against the one-device step, beyond its first loss and cosines; the
+# witness (the one-device steps with d's plain forward) comes as far, and
+# an averaged gradient would be 0.5 off (H100 80GB HBM3, 700.00 W: (b),
+# witness measured)
+MESH_LOSS_RTOL = 5e-2           # every step's loss: 2.8e-3, 4.0e-3 (1.8e-2 in one run of (b))
+MESH_GRAD_NORM_RTOL = 3e-2      # each first-step gradient's norm: 1.1e-2, 8.0e-3
+MESH_GRAD_REL_MAX = 0.15        # its relative L2 error: 0.091, 0.080 (the position table)
+MESH_UPDATE_REL_MAX = 0.5       # each parameter's update over the steps, k_b apart: 0.20, 0.19
+
+
+def _jax_side() -> list:
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "codesearch_tpu"))
+
+
+def _fused_grads(cfg, tree: dict) -> dict:
+    """A JAX-layout tree as f32 CPU tensors under the port's parameter names
+    (a BERT layer's q, k and v fused, as the one-device model holds them)."""
+    from codesearch_tpu_torch.models.encoder import BertEncoder
+
+    return {name: p.detach() for name, p in
+            BertEncoder(cfg, tree, device="cpu", trainable=True).named_parameters()}
+
+
+def held_to_one_device(ref: dict, losses: list, grads: dict, params: dict) -> dict:
+    """A run's distance from the one-device steps ``ref`` (its ``losses``,
+    first-step ``grads`` under the port's names, JAX-layout ``params`` and
+    ``init``): every step's relative loss error; per first-step gradient
+    the cosine, the relative L2 error and how far the norm ratio is from 1;
+    the parameters' largest difference; per parameter the relative L2
+    error of the update over the steps (``k_b`` apart: its gradient is zero
+    but for rounding, a bias on every key leaving the softmax as it is)."""
+    import numpy as np
+
+    def worst(values: dict, key=max) -> list:
+        name = key(values, key=values.get)
+        return [values[name], name]
+
+    cos, rel, norm, upd = {}, {}, {}, {}
+    for name, g in ref["grads"].items():
+        x = grads[name].double().cpu().ravel()
+        y = g.double().cpu().ravel()
+        cos[name] = float(x @ y / (x.norm() * y.norm()).clamp(min=1e-300))
+        rel[name] = float((x - y).norm() / y.norm().clamp(min=1e-300))
+        norm[name] = abs(float(x.norm() / y.norm().clamp(min=1e-300)) - 1)
+    diff = 0.0
+    for name, want in ref["params"].items():
+        diff = max(diff, float(np.abs(params[name] - want).max()))
+        if not name.endswith("k_b"):
+            d_got = (params[name] - ref["init"][name]).astype(np.float64)
+            d_want = (want - ref["init"][name]).astype(np.float64)
+            upd[name] = float(np.linalg.norm(d_got - d_want) / max(np.linalg.norm(d_want), 1e-300))
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    return {"losses": losses, "loss_rel_errs": loss_err, "loss_max_rel_err": max(loss_err),
+            "first_loss_rel_err": loss_err[0], "min_grad_cosine": worst(cos, min),
+            "max_grad_rel_err": worst(rel), "max_grad_norm_off": worst(norm),
+            "max_param_diff": diff, "max_update_rel_err": worst(upd)}
+
+
+def train_mesh_rank(mesh, cfg, data: list) -> dict:
+    """One rank of phase 14 (b), in a process ``spawn_ranks`` started:
+    ``train_runs`` (the first step's gradients gathered) with the launches
+    and plain-version calls counted, kernel d's first call recorded and the
+    all_reduces timed (host clock, the device synchronised before each);
+    after the counted window d's call is held to its plain version. Returns
+    the run, its counts, the step ms, the steps' all_reduces (calls, ms,
+    MB; not the gathers between steps), the peak MB, the check of d, the
+    modules of the JAX side this process imported and (rank 0) d's recorded
+    inputs."""
+    import torch
+    import torch.distributed as dist
+
+    from codesearch_tpu_torch.ops import attention as att
+    from codesearch_tpu_torch.parallel.launch import train_runs
+    from codesearch_tpu_torch.train import contrastive
+
+    kernel, recorded, device = att.attention_full, [], mesh.device.type
+    all_reduce, reduces, in_step = dist.all_reduce, [], []
+    make_step = contrastive.make_train_step
+
+    def marked_make_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def marked(model, batch):
+            in_step.append(True)
+            try:
+                return step(model, batch)
+            finally:
+                in_step.pop()
+
+        return marked
+
+    def recording(q, k, v, mask):
+        if not recorded:
+            recorded.append([t.detach().clone() for t in (q, k, v, mask)])
+        return kernel(q, k, v, mask)
+
+    def timed_all_reduce(t, *args, **kwargs):
+        if not in_step:
+            return all_reduce(t, *args, **kwargs)
+        _sync(device)
+        t0 = time.perf_counter()
+        out = all_reduce(t, *args, **kwargs)
+        reduces.append(((time.perf_counter() - t0) * 1000, t.numel() * t.element_size()))
+        return out
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts()
+    _peak_reset(device)
+    att.attention_full, dist.all_reduce = recording, timed_all_reduce
+    contrastive.make_train_step = marked_make_step
+    try:
+        with PlainCalls() as plain:
+            out = train_runs(mesh, [{"cfg": cfg, "batches": data}])[0]
+            counts = route_counts()
+    finally:
+        att.attention_full, dist.all_reduce = kernel, all_reduce
+        contrastive.make_train_step = make_step
+    out["peak_mb"] = _peak_mb(device)
+    q, k, v, mask = recorded[0]
+    got = att.attention_full(q, k, v, mask)
+    ref = att.attention_full_plain(q.contiguous(), k.contiguous(), v.contiguous(), mask)
+    err, share, ok = compare_attention(got, ref)
+    out.update(rank=mesh.rank, launches=counts, plain_calls=dict(plain.calls),
+               all_reduces={"calls_a_step": len(reduces) / len(data),
+                            "ms_a_step": sum(ms for ms, _ in reduces) / len(data),
+                            "mb_a_step": sum(b for _, b in reduces) / 2**20 / len(data)},
+               d_check={"shape": list(q.shape), "max_abs_err": err, "share_differing": share,
+                        "ok": ok and bool(torch.isfinite(got).all())},
+               jax_side=_jax_side(),
+               d_inputs=[t.cpu() for t in recorded[0]] if mesh.rank == 0 else None)
+    return out
+
+
+def mesh_d_row(inputs: list, launches: int, device: str) -> dict:
+    """Kernel d at the mesh's local-head shape (rank 0's first call of (b)),
+    in this process: held to its plain version, events ms (plain-kernel-
+    kernel-plain), device ms, bound and SDPA's time, as phase 3's rows."""
+    import torch
+
+    from codesearch_tpu_torch.examples.ablate_head_packing import cuda_ms
+    from codesearch_tpu_torch.ops import attention as att
+
+    q, k, v, mask = (t.to(device) for t in inputs)
+    kern, plain = att.attention_full, att.attention_full_plain
+    err, _, ok = compare_attention(kern(q, k, v, mask), plain(q, k, v, mask))
+    check(ok, "kernel d disagrees with its plain version at the mesh's local-head shape")
+    if device != "cuda":
+        return {"launches": launches, "ms": "not measured"}
+    t_plain_1 = cuda_ms(lambda: plain(q, k, v, mask), reps=10)
+    t_kern_1 = cuda_ms(lambda: kern(q, k, v, mask), reps=10)
+    t_kern_2 = cuda_ms(lambda: kern(q, k, v, mask), reps=10)
+    t_plain_2 = cuda_ms(lambda: plain(q, k, v, mask), reps=10)
+    row = {"shape": f"B={q.shape[0]} H={q.shape[1]} S={q.shape[2]} Dh={q.shape[3]} "
+                    "(the local heads of a 2 x 2 mesh, bge-small, under autograd)",
+           "launches": launches, "ms": min(t_kern_1, t_kern_2),
+           "events_ms": [t_kern_1, t_kern_2], "plain_ms": min(t_plain_1, t_plain_2),
+           "device_ms": device_ms(lambda: kern(q, k, v, mask)), **attention_bound(q, mask),
+           "library_ms": sdpa_ms(q, k, v, mask),
+           "library_device_ms": device_ms(sdpa_call(q, k, v, mask)), "max_abs_err": err}
+    torch.cuda.synchronize()
+    return row
+
+
+def train_mesh_phase(work: Path, device: str, contrastive: dict) -> dict:
+    """Phase 14: contrastive steps of bge-small as registered on a training
+    mesh, over phase 11c's CONTRASTIVE_STEPS timed batches. First the
+    one-device ``make_train_step`` on the card (the reference) and a witness
+    (the same steps with d's plain version forward: how far a last-bit
+    difference carries over the steps, logged beside (b)), then (a) a 1 x 1
+    mesh over NCCL in this process (``file://`` store, the group destroyed
+    after): losses and parameters bit for bit the one-device step's; (b) a
+    TRAIN_MESH mesh of four ranks on the one card over gloo (``spawn_ranks``;
+    NCCL refuses two ranks on one GPU), held to the one-device step
+    (``held_to_one_device``): rank 0's first loss within STEP_LOSS_RTOL and
+    every loss within MESH_LOSS_RTOL, each first-step gathered gradient at
+    cosine STEP_GRAD_COS_MIN, its norm within MESH_GRAD_NORM_RTOL and its
+    relative L2 error within MESH_GRAD_REL_MAX, the gathered parameters
+    after the steps within the Adam bound and each parameter's update
+    within MESH_UPDATE_REL_MAX; on every
+    rank d 24 times a step (12 layers, queries and documents, at H=6) and
+    as many recomputes, no other plain version, its first d call equal to
+    its plain version, nothing of the JAX side imported. Kernel d's
+    launches of (a) and (b) are the path "train_mesh"; d is timed at the
+    local-head shape. Four ranks share one card and gloo goes through the
+    host: the step ms are no scaling figure."""
+    import numpy as np
+
+    from codesearch_tpu_torch.models.encoder import cached_init_params, flatten_params
+    from codesearch_tpu_torch.ops import attention as att
+    from codesearch_tpu_torch.parallel.launch import spawn_ranks
+    from codesearch_tpu_torch.parallel.train_mesh import init_train_mesh
+    from codesearch_tpu_torch.train.contrastive import (make_sharded_train_state,
+                                                        make_train_state, make_train_step)
+
+    t0 = time.perf_counter()
+    cfg, data = contrastive_batches(work)
+    data = data[1:CONTRASTIVE_STEPS + 1]
+    n = cfg.layers * 2 * CONTRASTIVE_STEPS
+
+    def timed_steps(model, step) -> tuple[list, list, dict | None]:
+        losses, times, grads = [], [], None
+        for batch in data:
+            _sync(device)
+            t = time.perf_counter()
+            losses.append(float(step(model, batch)))
+            times.append((time.perf_counter() - t) * 1000)
+            if grads is None:
+                grads = {name: p.grad.detach().clone() for name, p in model.named_parameters()}
+        return losses, times, grads
+
+    def one_device() -> tuple[dict, list]:
+        model, opt = make_train_state(cfg, device=device, seed=0)
+        losses, times, grads = timed_steps(model, make_train_step(cfg, opt))
+        return {"losses": losses, "grads": grads,
+                "params": flatten_params(model.to_params())}, times
+
+    ref, ref_ms = one_device()
+    ref["init"] = flatten_params(cached_init_params(cfg, 0))
+    # the witness: the one-device steps again with kernel d's forward taken
+    # by its plain version (the same function, rounded apart in a few last
+    # bits), to show how far such a difference carries over the steps
+    kernel = att.attention_full
+    att.attention_full = att.attention_full_plain
+    try:
+        wit, _ = one_device()
+    finally:
+        att.attention_full = kernel
+    witness = held_to_one_device(ref, wit["losses"], wit["grads"], wit["params"])
+    del wit
+    log(f"phase 14 witness (one device, d's plain version forward): {json.dumps(witness)}")
+
+    # (a) 1 x 1 over NCCL in this process
+    # (a CPU rehearsal takes gloo: NCCL runs on CUDA only)
+    mesh = init_train_mesh(1, 1, backend="nccl" if device == "cuda" else "gloo",
+                           init_method=f"file://{work / 'nccl-store'}", rank=0, world_size=1,
+                           device=device)
+    try:
+        reset_counts()
+        with PlainCalls() as plain:
+            model, opt = make_sharded_train_state(cfg, mesh, seed=0)
+            losses, times, _ = timed_steps(model, make_train_step(cfg, opt, mesh))
+            counts_a = route_counts()
+        params = flatten_params(model.gather_params())
+    finally:
+        mesh.destroy()
+    del model, opt
+    param_diff = max(float(np.abs(params[k] - ref["params"][k]).max()) for k in ref["params"])
+    one = {"losses": losses, "one_device_losses": ref["losses"],
+           "bit_equal": losses == ref["losses"] and param_diff == 0.0,
+           "max_param_diff": param_diff, "step_ms_median": statistics.median(times),
+           "one_device_step_ms_median": statistics.median(ref_ms),
+           "phase_11c_step_ms_median": contrastive["step_ms_median"],
+           "launches": counts_a, "plain_calls": dict(plain.calls)}
+    log(f"phase 14 (a) 1 x 1 over NCCL: {json.dumps(one)}")
+
+    # (b) 2 x 2 over gloo: four ranks on the one card (both parts run before
+    # either is checked)
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(*TRAIN_MESH, train_mesh_rank, (cfg, data), backend="gloo",
+                        device=device, init_dir=work / "train-mesh-init",
+                        timeout=TRAIN_MESH_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t1
+    r0 = ranks[0]
+    held = held_to_one_device(ref, r0["losses"], _fused_grads(cfg, r0["grads"]),
+                              flatten_params(r0["params"]))
+    d_row = mesh_d_row(r0["d_inputs"], sum(r["launches"]["attention_full"] for r in ranks),
+                       device)
+    two = {"grid": list(TRAIN_MESH), "backend": "gloo", **held, "adam_bound": ADAM_BOUND,
+           "witness": witness, "spawn_and_run_s": spawn_s,
+           "ranks": [{"rank": r["rank"], "step_ms_median": statistics.median(r["step_ms"]),
+                      "step_ms": r["step_ms"], "peak_mb": r["peak_mb"],
+                      "all_reduces": r["all_reduces"],
+                      "attention_full": r["launches"]["attention_full"],
+                      "composed_backward": r["launches"]["composed_backward"],
+                      "plain_calls": r["plain_calls"], "d_check": r["d_check"],
+                      "jax_side": r["jax_side"]} for r in ranks],
+           "d_local_heads": d_row}
+    log(f"phase 14 (b) {TRAIN_MESH[0]} x {TRAIN_MESH[1]} over gloo on one card: "
+        f"{json.dumps(two)}")
+    # on the CPU the one-device step itself is not bit-reproducible (the
+    # word table's gradient accumulates over threads), so a rehearsal
+    # holds (a) to the tolerances of (b) only
+    check(max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])) <= STEP_LOSS_RTOL
+          and param_diff <= ADAM_BOUND and (device != "cuda" or one["bit_equal"]),
+          f"the 1 x 1 mesh is not the one-device step: losses {losses} against "
+          f"{ref['losses']}, parameters {param_diff} apart")
+    check(device != "cuda" or (counts_a["attention_full"] == n
+                               and counts_a["composed_backward"] == n
+                               and one["plain_calls"] == {"reference_attention": n}),
+          f"(a): d {counts_a['attention_full']}, recomputes {counts_a['composed_backward']}, "
+          f"plain {one['plain_calls']} (want {n} each)")
+    check(all(r["losses"] == r0["losses"] for r in ranks), "the ranks' losses differ")
+    check(held["first_loss_rel_err"] <= STEP_LOSS_RTOL
+          and held["loss_max_rel_err"] <= MESH_LOSS_RTOL
+          and held["min_grad_cosine"][0] >= STEP_GRAD_COS_MIN
+          and held["max_grad_norm_off"][0] <= MESH_GRAD_NORM_RTOL
+          and held["max_grad_rel_err"][0] <= MESH_GRAD_REL_MAX,
+          f"the 2 x 2 step is not the one-device step: losses {held['loss_rel_errs']} off "
+          f"(first within {STEP_LOSS_RTOL}, all within {MESH_LOSS_RTOL}), first-step "
+          f"gradients at cosine {held['min_grad_cosine']}, norms {held['max_grad_norm_off']} "
+          f"off, relative error {held['max_grad_rel_err']}")
+    check(held["max_param_diff"] <= ADAM_BOUND
+          and held["max_update_rel_err"][0] <= MESH_UPDATE_REL_MAX,
+          f"the 2 x 2 parameters drifted {held['max_param_diff']} from the one-device "
+          f"step's (bound {ADAM_BOUND}), updates {held['max_update_rel_err']} apart "
+          f"(bound {MESH_UPDATE_REL_MAX})")
+    for r in ranks:
+        c = r["launches"]
+        check(device != "cuda" or (c["attention_full"] == n and c["composed_backward"] == n
+                                   and c["attention_flash"] == 0
+                                   and r["plain_calls"] == {"reference_attention": n}),
+              f"rank {r['rank']}: d {c['attention_full']}, recomputes {c['composed_backward']}, "
+              f"plain {r['plain_calls']} (want {n} each)")
+        check(r["d_check"]["ok"] and r["d_check"]["shape"] == [
+            CONTRASTIVE_BATCH // TRAIN_MESH[0], cfg.heads // TRAIN_MESH[1], CONTRASTIVE_LEN,
+            cfg.hidden // cfg.heads], f"rank {r['rank']}: kernel d's check {r['d_check']}")
+        check(not r["jax_side"], f"rank {r['rank']} imported {r['jax_side'][:5]}")
+    counts = collections.Counter(counts_a)
+    for r in ranks:
+        counts.update(r["launches"])
+    out = {"one_by_one": one, "two_by_two": two, "seconds": time.perf_counter() - t0,
+           "launches": {"train_mesh": dict(counts)}}
+    log(f"phase 14 seconds: {out['seconds']:.2f} (the four ranks {spawn_s:.2f})")
+    return out
+
+
 def nvidia_smi_line() -> str:
     try:
         proc = subprocess.run(
@@ -3358,8 +3719,11 @@ def main() -> int:
         log(f"phase 12 seconds: {time.perf_counter() - t:.2f} ({smi})")
         mesh = mesh_phase(work, "cuda", self_index)
         log(f"phase 13 results ({smi}): {json.dumps(mesh, default=str)}")
+        train_mesh = train_mesh_phase(work, "cuda", trained["contrastive"])
+        log(f"phase 14 results ({smi}): {json.dumps(train_mesh, default=str)}")
         timing["attention_full"]["rotary_shapes"] = family["d_at_rotary_shapes"]
         timing["attention_full"]["training_shapes"] = grads["attention_full"]
+        timing["attention_full"]["train_mesh_shape"] = train_mesh["two_by_two"]["d_local_heads"]
         timing["attention_flash"]["training_shapes"] = grads["attention_flash"]
         for name in ("fused_cosine_topk", "fused_cosine_topk_int8"):
             timing[name]["sharded"] = mesh["direct"][name]
@@ -3370,11 +3734,13 @@ def main() -> int:
         # 9's (the waves, MCP, HTTP) and phase 10's (Nomic, ModernBERT,
         # rerank), phase 11's (train and the searches after it, train
         # --cross-encoder and the reranked searches, the contrastive steps)
-        # phase 12's (search --all-repos) and phase 13's (the sessions, the
-        # data-parallel embedding and the index on a mesh: "sharded"), each
-        # counted on its own
+        # phase 12's (search --all-repos), phase 13's (the sessions, the
+        # data-parallel embedding and the index on a mesh: "sharded") and
+        # phase 14's (the training mesh's steps, every rank's: "train_mesh"),
+        # each counted on its own
         paths = {**bert["launches"], **served["launches"], **family["launches"],
-                 **trained["launches"], **cli["launches"], **mesh["launches"]}
+                 **trained["launches"], **cli["launches"], **mesh["launches"],
+                 **train_mesh["launches"]}
         for name, via in (("fused_cosine_topk", "search"), ("fused_cosine_topk_int8", "search"),
                           ("fused_scores_topk", "search"), ("attention_full", "search"),
                           ("attention_flash", "direct")):
@@ -3394,8 +3760,9 @@ def main() -> int:
                   if k["name"] in ("fused_cosine_topk", "fused_cosine_topk_int8",
                                    "fused_scores_topk", "attention_full")),
               "a kernel of the sharded path never launched there")
-        jax_side = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
-                                                                         "codesearch_tpu"))
+        check(next(k for k in kernels if k["name"] == "attention_full")["launches_by_path"]
+              .get("train_mesh", 0) > 0, "kernel d never launched on the training mesh")
+        jax_side = _jax_side()
         check(not jax_side, f"jax or the JAX package was imported: {jax_side[:5]}")
         print(json.dumps({"kernels": kernels}))
         print(smi)

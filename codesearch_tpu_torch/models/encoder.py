@@ -32,6 +32,29 @@ grad: the attention then takes ``fused_encoder_attention``'s autograd route
 ``to_params()`` gives the JAX package's parameter tree back, with a BERT
 layer's fused QKV split into ``q_w``/``k_w``/``v_w`` again.
 
+The sharded form (``mesh=``, a ``parallel.train_mesh.TrainMesh``; trainable
+only) holds this rank's shards under the JAX package's ``_rule_for`` and
+runs the same layers with the collectives GSPMD would insert:
+
+- BERT: each rank holds the q, k and v columns of its own heads (H /
+  n_model, fused locally as ``[h, 3h / n_model]``) and its columns of
+  ``mlp_in``; the attention runs on those heads (kernel d or e as on one
+  device); ``copy_to_model`` before the column-parallel products,
+  ``row_parallel`` (the partial products summed in f32) for ``o_w`` and
+  ``mlp_out_w`` (this rank's rows), ``o_b`` and ``mlp_out_b`` added once
+  after the sum. An ALiBi model takes its heads' rows of the bias;
+- ModernBERT: only ``o_w`` is split (its fused ``qkv_w`` and ``wi_w`` are
+  replicated, their names not being in the rule): the replicated attention
+  output, sliced to this rank's rows of ``o_w``, then ``row_parallel``;
+- Nomic: no layer weight is split;
+- every family: the word table split by vocabulary rows (ids clamped to
+  the global table first, then ``vocab_parallel_lookup``).
+
+``gather_params()`` returns the full JAX-layout tree on rank 0;
+``gather_tensors``/``shard_tensors`` move any per-parameter tensors
+(parameters, gradients, Adam moments) between a rank's shards and the
+one-device layout.
+
 Weights come as the JAX package's parameter tree of numpy arrays, from one
 of three places:
 
@@ -56,6 +79,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import alibi_bias, fused_encoder_attention
+from ..parallel import train_mesh as tm
 from ..utils.constants import get_config_dir
 from ..utils.device import resolve_device
 from . import jax_random
@@ -352,11 +376,12 @@ class _Layer(nn.Module):
     each to the activation dtype), norm parameters as f32; trainable, every
     weight an f32 parameter and the dense ones cast in ``weights()``."""
 
-    def __init__(self, cfg: ArchConfig, p: dict, device, trainable: bool = False):
+    def __init__(self, cfg: ArchConfig, p: dict, device, trainable: bool = False, mesh=None):
         super().__init__()
         self.heads = cfg.heads
         self.eps = cfg.layer_norm_eps
         self.trainable = trainable
+        self.mesh = mesh
         for name, arr in p.items():
             _register(self, name, arr, device, trainable,
                       torch.bfloat16 if _is_dense(name) else torch.float32)
@@ -383,27 +408,39 @@ class _Layer(nn.Module):
             (q, k), v = qk.split(self.heads, dim=2), parts[:, :, 2 * self.heads:]
         return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
+    def _to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated input that this rank uses in part (a column-parallel
+        product, a slice): on a mesh, its gradient summed over "model"."""
+        return x if self.mesh is None else tm.copy_to_model(x, self.mesh)
+
+    def _row_product(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``x @ w``, or on a mesh this rank's rows of ``w`` against its
+        columns of ``x``, summed over "model"."""
+        return torch.matmul(x, w) if self.mesh is None else tm.row_parallel(x, w, self.mesh)
+
 
 class _BertLayer(_Layer):
     """One post-norm BERT layer (``_encoder_layer``): fused biased QKV,
     GELU MLP; ``bias2d`` is the ALiBi bias of an ALiBi model."""
 
-    def __init__(self, cfg: ArchConfig, p: dict, device, trainable: bool = False):
+    def __init__(self, cfg: ArchConfig, p: dict, device, trainable: bool = False, mesh=None):
         fused = {"qkv_w": np.concatenate([p["q_w"], p["k_w"], p["v_w"]], axis=1),
                  "qkv_b": np.concatenate([p["q_b"], p["k_b"], p["v_b"]])}
         rest = {k: v for k, v in p.items() if k[:2] not in ("q_", "k_", "v_")}
-        super().__init__(cfg, {**fused, **rest}, device, trainable)
+        super().__init__(cfg, {**fused, **rest}, device, trainable, mesh)
+        if mesh is not None:        # this rank's heads
+            self.heads = cfg.heads // mesh.n_model
 
     def forward(self, x: torch.Tensor, maskf: torch.Tensor, bias2d=None) -> torch.Tensor:
-        b, s, h = x.shape
+        b, s, _ = x.shape
         w = self.weights()
-        q, k, v = self._heads(torch.matmul(x, w["qkv_w"]) + w["qkv_b"])
+        q, k, v = self._heads(torch.matmul(self._to_model(x), w["qkv_w"]) + w["qkv_b"])
         attn = fused_encoder_attention(q, k, v, maskf, bias2d=bias2d)
-        attn = attn.transpose(1, 2).reshape(b, s, h)
-        attn = torch.matmul(attn, w["o_w"]) + w["o_b"]
+        attn = attn.transpose(1, 2).reshape(b, s, -1)
+        attn = self._row_product(attn, w["o_w"]) + w["o_b"]
         x = _layer_norm(x + attn, w["attn_ln_scale"], w["attn_ln_bias"], self.eps)
-        mlp = F.gelu(torch.matmul(x, w["mlp_in_w"]) + w["mlp_in_b"])
-        mlp = torch.matmul(mlp, w["mlp_out_w"]) + w["mlp_out_b"]
+        mlp = F.gelu(torch.matmul(self._to_model(x), w["mlp_in_w"]) + w["mlp_in_b"])
+        mlp = self._row_product(mlp, w["mlp_out_w"]) + w["mlp_out_b"]
         return _layer_norm(x + mlp, w["mlp_ln_scale"], w["mlp_ln_bias"], self.eps)
 
 
@@ -429,8 +466,9 @@ class _ModernBertLayer(_Layer):
     layer 0's attention), bias-free, rotary, windowed attention on local
     layers, GeGLU ``gelu(inp) * gate`` of ``Wi``'s halves in that order."""
 
-    def __init__(self, cfg: ArchConfig, p: dict, device, index: int, trainable: bool = False):
-        super().__init__(cfg, p, device, trainable)
+    def __init__(self, cfg: ArchConfig, p: dict, device, index: int, trainable: bool = False,
+                 mesh=None):
+        super().__init__(cfg, p, device, trainable, mesh)
         self.is_global = index % cfg.global_every == 0
         self.window = 0 if self.is_global else cfg.local_window
         self.first = index == 0
@@ -441,10 +479,33 @@ class _ModernBertLayer(_Layer):
         xa = x if self.first else _layer_norm(x, w["attn_ln_scale"], None, self.eps)
         q, k, v = self._heads(torch.matmul(xa, w["qkv_w"]), rope)
         attn = fused_encoder_attention(q, k, v, maskf, window=self.window)
-        x = x + torch.matmul(attn.transpose(1, 2).reshape(b, s, h), w["o_w"])
+        attn = attn.transpose(1, 2).reshape(b, s, h)
+        if self.mesh is not None:   # the replicated output's rows of this rank's o_w
+            attn = tm.take_shard(self._to_model(attn), 2, self.mesh)
+        x = x + self._row_product(attn, w["o_w"])
         xm = _layer_norm(x, w["mlp_ln_scale"], None, self.eps)
         inp, gate = torch.matmul(xm, w["wi_w"]).chunk(2, dim=-1)
         return x + torch.matmul(F.gelu(inp) * gate, w["wo_w"])
+
+
+def _module_shard_dims(cfg: ArchConfig, specs: dict) -> dict[str, tuple[int, int]]:
+    """(dimension, blocks) of every module parameter split over "model",
+    from the JAX-layout partitions: a BERT layer's fused ``qkv_w``/``qkv_b``
+    takes its q, k and v parts' dimension in 3 blocks."""
+    out = {}
+    for name, spec in flatten_params(specs).items():
+        dim = tm.split_dim(spec)
+        if dim is None:
+            continue
+        parts = name.split(".")
+        blocks = 1
+        if cfg.arch_style == "bert" and parts[-1][:2] in ("q_", "k_", "v_"):
+            parts[-1], blocks = "qkv_" + parts[-1][2:], 3
+        name = ".".join(parts)
+        if name.startswith("embeddings."):
+            name = "emb_" + name[len("embeddings."):]
+        out[name] = (dim, blocks)
+    return out
 
 
 class BertEncoder(nn.Module):
@@ -452,22 +513,36 @@ class BertEncoder(nn.Module):
     (see the module docstring for the families, the two forms and the three
     sources)."""
 
-    def __init__(self, cfg: ArchConfig, params: dict, device=None, trainable: bool = False):
+    def __init__(self, cfg: ArchConfig, params: dict, device=None, trainable: bool = False,
+                 mesh: tm.TrainMesh | None = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.trainable = trainable
+        self.vocab_rows = params["embeddings"]["word"].shape[0]
+        # (dimension, blocks) of each parameter split over "model"
+        self.shard_dims: dict[str, tuple[int, int]] = {}
+        if mesh is not None:
+            if not trainable:
+                raise ValueError("a sharded encoder is trainable (trainable=True)")
+            if cfg.arch_style == "bert" and cfg.heads % mesh.n_model:
+                raise ValueError(f"q_w: {cfg.heads} heads do not divide by the 'model' axis "
+                                 f"({mesh.n_model})")
+            self.shard_dims = _module_shard_dims(cfg, tm.param_shardings(params, mesh))
+            params = tm.shard_params(params, mesh)
         for name, arr in params["embeddings"].items():
             _register(self, f"emb_{name}", arr, self.device, trainable)
         if cfg.arch_style == "modernbert":
             _register(self, "final_ln_scale", params["final_ln_scale"], self.device, trainable)
-            layers = (_ModernBertLayer(cfg, p, self.device, i, trainable)
+            layers = (_ModernBertLayer(cfg, p, self.device, i, trainable, mesh)
                       for i, p in enumerate(params["layers"]))
         elif cfg.arch_style == "nomic":
-            layers = (_NomicLayer(cfg, p, self.device, trainable) for p in params["layers"])
+            layers = (_NomicLayer(cfg, p, self.device, trainable, mesh)
+                      for p in params["layers"])
         else:
-            layers = (_BertLayer(cfg, p, self.device, trainable) for p in params["layers"])
+            layers = (_BertLayer(cfg, p, self.device, trainable, mesh) for p in params["layers"])
         self.layers = nn.ModuleList(layers)
 
     def _grad_mode(self):
@@ -476,9 +551,13 @@ class BertEncoder(nn.Module):
 
     def to_params(self) -> dict:
         """The JAX package's parameter tree of f32 numpy arrays (a BERT
-        layer's fused QKV split into ``q_*``, ``k_*``, ``v_*`` again)."""
+        layer's fused QKV split into ``q_*``, ``k_*``, ``v_*`` again); on a
+        mesh, this rank's shards."""
+        return self._jax_tree(dict((*self.named_buffers(), *self.named_parameters())))
+
+    def _jax_tree(self, tensors: dict) -> dict:
         flat = {}
-        for name, t in (*self.named_buffers(), *self.named_parameters()):
+        for name, t in tensors.items():
             arr = t.detach().float().cpu().numpy()
             name = name.replace("emb_", "embeddings.", 1) if name.startswith("emb_") else name
             if self.cfg.arch_style == "bert" and name.endswith(("qkv_w", "qkv_b")):
@@ -487,6 +566,38 @@ class BertEncoder(nn.Module):
             else:
                 flat[name] = arr
         return unflatten_params(flat)
+
+    def gather_tensors(self, tensors: dict) -> dict | None:
+        """Per-parameter tensors by parameter name (the parameters, their
+        gradients, Adam moments), this rank's shards -> the one-device
+        layout in f32: a collective over "model" on a mesh, the result on
+        rank 0 and None on the others; without a mesh, detached."""
+        if self.mesh is None:
+            return {name: t.detach() for name, t in tensors.items()}
+        full = {}
+        for name, t in tensors.items():
+            dim, blocks = self.shard_dims.get(name, (None, 1))
+            full[name] = tm.gather_shard(t, dim, self.mesh, blocks)
+        return full if self.mesh.rank == 0 else None
+
+    def shard_tensors(self, tensors: dict) -> dict:
+        """One-device-layout tensors by parameter name -> this rank's
+        shards (as they are without a mesh)."""
+        if self.mesh is None:
+            return dict(tensors)
+        out = {}
+        for name, t in tensors.items():
+            dim, blocks = self.shard_dims.get(name, (None, 1))
+            out[name] = tm.take_shard(t, dim, self.mesh, blocks)
+        return out
+
+    def gather_params(self, grads: bool = False) -> dict | None:
+        """The full JAX-layout parameter tree (f32 numpy; ``grads``: the
+        parameters' gradients) on rank 0, None on the other ranks; a
+        collective over "model". Without a mesh, the tree of this model."""
+        named = {name: p.grad if grads else p for name, p in self.named_parameters()}
+        full = self.gather_tensors(named)
+        return None if full is None else self._jax_tree(full)
 
     def encode_hidden(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                       token_type_ids: torch.Tensor | None = None) -> torch.Tensor:
@@ -499,7 +610,9 @@ class BertEncoder(nn.Module):
         s = input_ids.shape[1]
         maskf = attention_mask.float()
         # ids past the table take its last row, as XLA's gather clamps them
-        x = self.emb_word[input_ids.long().clamp(max=self.emb_word.shape[0] - 1)]
+        ids = input_ids.long().clamp(max=self.vocab_rows - 1)
+        x = self.emb_word[ids] if self.mesh is None \
+            else tm.vocab_parallel_lookup(self.emb_word, ids, self.mesh)
         if cfg.arch_style == "modernbert":
             x = _layer_norm(x, self.emb_ln_scale, None, cfg.layer_norm_eps).to(torch.bfloat16)
             dh = cfg.hidden // cfg.heads
@@ -514,8 +627,11 @@ class BertEncoder(nn.Module):
         x = x + tt
         bias2d = None
         if cfg.arch_style == "bert" and cfg.position_type == "alibi":
-            # one [H, S, S] bias a forward, shared by every layer
+            # one [H, S, S] bias a forward, shared by every layer (on a mesh,
+            # this rank's heads)
             bias2d = alibi_bias(cfg.heads, s, device=self.device)
+            if self.mesh is not None:
+                bias2d = tm.take_shard(bias2d, 0, self.mesh)
         elif cfg.arch_style == "bert":
             x = x + self.emb_position[:s][None]
         x = _layer_norm(x, self.emb_ln_scale, self.emb_ln_bias, cfg.layer_norm_eps)
