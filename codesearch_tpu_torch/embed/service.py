@@ -36,6 +36,7 @@ from ..utils.constants import get_embedding_cache_dir, get_global_models_cache_d
 from ..utils.device import resolve_device, to_host
 from ..utils.hashing import sha256_file
 from ..utils.logger import get_logger
+from ..utils.tracing import span
 from .cache import (
     LruBytesCache,
     PersistentEmbeddingCache,
@@ -130,7 +131,7 @@ class _HashBackend:
         if self.mesh is not None and len(texts) >= 2 * self.mesh.shape["data"]:
             pending = []
             for a in range(0, len(texts), EMBED_BATCH):
-                ids, ws = batch_features(texts[a:a + EMBED_BATCH])
+                ids, ws = self._featurize(texts[a:a + EMBED_BATCH])
                 outs = embed_feature_shards(self.tables, ids, ws, self.mesh)
                 pending.append((len(ids), [o.half() for o in outs] if half_transfer else outs))
 
@@ -143,12 +144,23 @@ class _HashBackend:
         dev = self.model.device
         outs = []
         for a in range(0, len(texts), EMBED_BATCH):
-            ids, ws = batch_features(texts[a:a + EMBED_BATCH])
-            out = embed_features(self.model.table, torch.from_numpy(ids).to(dev),
-                                 torch.from_numpy(ws).to(dev))
-            outs.append(out.half() if half_transfer else out)
+            ids, ws = self._featurize(texts[a:a + EMBED_BATCH])
+            with span("cs.embed.launch"):
+                out = embed_features(self.model.table, torch.from_numpy(ids).to(dev),
+                                     torch.from_numpy(ws).to(dev))
+                outs.append(out.half() if half_transfer else out)
         vecs = torch.cat(outs)
         return lambda: to_host(vecs)[0].astype(np.float32)
+
+    @staticmethod
+    def _featurize(texts: list[str]) -> tuple[np.ndarray, np.ndarray]:
+        """``batch_features`` in the span ``cs.embed.tokenize`` (texts, and
+        the features kept as tokens)."""
+        with span("cs.embed.tokenize", texts=len(texts)) as sp:
+            ids, ws = batch_features(texts)
+            if sp:
+                sp.add(tokens=int(np.count_nonzero(ws)))
+            return ids, ws
 
     def embed(self, texts: list[str]) -> np.ndarray:
         return self.embed_async(texts)()
@@ -215,30 +227,37 @@ class _BertBackend:
         if not texts:
             return lambda: np.zeros((0, self.spec.dims), np.float32)
         dev = self.encoder.device
-        encs = [self.tokenizer.encode(t) for t in texts]
-        order = sorted(range(len(encs)), key=lambda i: len(encs[i].ids))
-        bs = _default_batch_size(self.spec.dims)
-        if self.mesh is not None:
-            bs *= self.mesh.shape["data"]
-        pending: list[tuple[list[int], list[torch.Tensor]]] = []
-        for a in range(0, len(order), bs):
-            batch_idx = order[a:a + bs]
-            max_len = self._bucket(max(len(encs[i].ids) for i in batch_idx))
-            ids = np.zeros((len(batch_idx), max_len), np.int32)
-            mask = np.zeros((len(batch_idx), max_len), np.int32)
-            for row, i in enumerate(batch_idx):
-                n = min(len(encs[i].ids), max_len)
-                ids[row, :n] = encs[i].ids[:n]
-                mask[row, :n] = 1
+        with span("cs.embed.tokenize", texts=len(texts)) as sp:
+            encs = [self.tokenizer.encode(t) for t in texts]
+            if sp:
+                sp.add(tokens=sum(len(e.ids) for e in encs))
+        with span("cs.embed.launch") as sp:
+            order = sorted(range(len(encs)), key=lambda i: len(encs[i].ids))
+            bs = _default_batch_size(self.spec.dims)
             if self.mesh is not None:
-                vecs = encode_shards(self.encoders, ids, mask, self.mesh)
-            else:
-                vecs = [self.encoder.encode(torch.from_numpy(ids).to(dev),
-                                            torch.from_numpy(mask).to(dev))]
-            pending.append((batch_idx, [v.half() for v in vecs] if half_transfer else vecs))
-            self.counts["texts"] += len(batch_idx)
-            self.counts["tokens"] += int(mask.sum())
-            self.counts["padded_tokens"] += mask.size
+                bs *= self.mesh.shape["data"]
+            pending: list[tuple[list[int], list[torch.Tensor]]] = []
+            for a in range(0, len(order), bs):
+                batch_idx = order[a:a + bs]
+                max_len = self._bucket(max(len(encs[i].ids) for i in batch_idx))
+                ids = np.zeros((len(batch_idx), max_len), np.int32)
+                mask = np.zeros((len(batch_idx), max_len), np.int32)
+                for row, i in enumerate(batch_idx):
+                    n = min(len(encs[i].ids), max_len)
+                    ids[row, :n] = encs[i].ids[:n]
+                    mask[row, :n] = 1
+                if self.mesh is not None:
+                    vecs = encode_shards(self.encoders, ids, mask, self.mesh)
+                else:
+                    vecs = [self.encoder.encode(torch.from_numpy(ids).to(dev),
+                                                torch.from_numpy(mask).to(dev))]
+                pending.append((batch_idx, [v.half() for v in vecs] if half_transfer else vecs))
+                real = int(mask.sum())
+                self.counts["texts"] += len(batch_idx)
+                self.counts["tokens"] += real
+                self.counts["padded_tokens"] += mask.size
+                if sp:
+                    sp.add(tokens=real, padded=mask.size - real)
 
         def finish() -> np.ndarray:
             out = np.zeros((len(texts), self.spec.dims), np.float32)
@@ -326,58 +345,60 @@ class EmbeddingService:
         "host/device pipeline overlap")."""
         if not chunks:
             return lambda: np.zeros((0, self.dims), np.float32)
-        hashes = [c.hash for c in chunks]
-        found: dict[str, np.ndarray] = {}
-        for h in hashes:
-            v = self.mem_cache.get(h)
-            if v is not None:
-                found[h] = v
-        missing_after_mem = [h for h in set(hashes) if h not in found]
-        if self.persistent is not None and missing_after_mem:
-            disk = self.persistent.get_batch(missing_after_mem)
-            for h, v in disk.items():
-                found[h] = v
-                self.mem_cache.put(h, v)
-        to_compute: list[int] = []
-        seen: set[str] = set()
-        for i, c in enumerate(chunks):
-            if c.hash not in found and c.hash not in seen:
-                to_compute.append(i)
-                seen.add(c.hash)
-        finish_backend = None
-        if to_compute:
-            texts = [prepare_text(chunks[i]) for i in to_compute]
-            # fp16 device→host: every row is quantized to fp16 at store
-            # insert anyway; rounding before the copy halves the dominant
-            # transfer of a bulk index. Cached values round identically, so
-            # a later cache hit inserts the same fp16 row.
-            finish_backend = self.backend.embed_async(texts,
-                                                      half_transfer=True)
+        with span("cs.embed.batch"):
+            hashes = [c.hash for c in chunks]
+            found: dict[str, np.ndarray] = {}
+            for h in hashes:
+                v = self.mem_cache.get(h)
+                if v is not None:
+                    found[h] = v
+            missing_after_mem = [h for h in set(hashes) if h not in found]
+            if self.persistent is not None and missing_after_mem:
+                disk = self.persistent.get_batch(missing_after_mem)
+                for h, v in disk.items():
+                    found[h] = v
+                    self.mem_cache.put(h, v)
+            to_compute: list[int] = []
+            seen: set[str] = set()
+            for i, c in enumerate(chunks):
+                if c.hash not in found and c.hash not in seen:
+                    to_compute.append(i)
+                    seen.add(c.hash)
+            finish_backend = None
+            if to_compute:
+                texts = [prepare_text(chunks[i]) for i in to_compute]
+                # fp16 device→host: every row is quantized to fp16 at store
+                # insert anyway; rounding before the copy halves the dominant
+                # transfer of a bulk index. Cached values round identically, so
+                # a later cache hit inserts the same fp16 row.
+                finish_backend = self.backend.embed_async(texts,
+                                                          half_transfer=True)
 
         def finish() -> np.ndarray:
-            row_of: dict[str, int] = {}
-            vecs = None
-            if finish_backend is not None:
-                vecs = np.asarray(finish_backend())
-                new: dict[str, np.ndarray] = {}
-                for row, i in enumerate(to_compute):
-                    h = chunks[i].hash
-                    row_of[h] = row
-                    v = vecs[row]
-                    new[h] = v
-                    self.mem_cache.put(h, v)
-                if self.persistent is not None:
-                    self.persistent.put_batch(new)
-            out = np.empty((len(chunks), self.dims), np.float32)
-            fresh = [i for i, c in enumerate(chunks) if c.hash in row_of]
-            if fresh:
-                out[np.asarray(fresh)] = vecs[
-                    np.asarray([row_of[chunks[i].hash] for i in fresh])
-                ]
-            for i, c in enumerate(chunks):
-                if c.hash not in row_of:
-                    out[i] = found[c.hash]
-            return out
+            with span("cs.embed.finish"):
+                row_of: dict[str, int] = {}
+                vecs = None
+                if finish_backend is not None:
+                    vecs = np.asarray(finish_backend())
+                    new: dict[str, np.ndarray] = {}
+                    for row, i in enumerate(to_compute):
+                        h = chunks[i].hash
+                        row_of[h] = row
+                        v = vecs[row]
+                        new[h] = v
+                        self.mem_cache.put(h, v)
+                    if self.persistent is not None:
+                        self.persistent.put_batch(new)
+                out = np.empty((len(chunks), self.dims), np.float32)
+                fresh = [i for i, c in enumerate(chunks) if c.hash in row_of]
+                if fresh:
+                    out[np.asarray(fresh)] = vecs[
+                        np.asarray([row_of[chunks[i].hash] for i in fresh])
+                    ]
+                for i, c in enumerate(chunks):
+                    if c.hash not in row_of:
+                        out[i] = found[c.hash]
+                return out
 
         return finish
 

@@ -19,7 +19,6 @@ import datetime as _dt
 import json
 import os
 import shutil
-import time
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -45,6 +44,7 @@ from ..utils.constants import (
 from ..utils.device import resolve_device
 from ..utils.errors import IndexError_
 from ..utils.output import ProgressLine, info_print, warn_print
+from ..utils.tracing import span, stage
 from ..vectordb import ChunkMetadata, VectorStore
 from .db_discovery import find_best_database, global_db_path, register_global_db
 from .file_meta import FileMetaStore, normalize_path
@@ -252,9 +252,18 @@ def index(path: str | Path = ".", options: IndexOptions | None = None,
     """Full or incremental index of a repository on ``device``. Pass
     ``service`` and ``stores`` to refresh a server's live stores in place
     (manager.rs:394-611; the stores' device wins over ``device``); otherwise
-    the stores open from the resolved database path."""
-    options = options or IndexOptions()
-    t0 = time.time()
+    the stores open from the resolved database path. ``elapsed_s`` is the
+    span ``cs.index.call``'s time on the monotonic clock; its children are
+    ``cs.index.open``, ``walk``, ``diff``, ``chunk`` and ``finalize``, the
+    embedding service's ``cs.embed.*`` and the stores' ``cs.store.insert``,
+    ``cs.fts.add`` and ``cs.fts.commit``."""
+    with stage("cs.index.call") as call:
+        stats = _index(path, options or IndexOptions(), device, service, stores)
+    stats.elapsed_s = call.seconds
+    return stats
+
+
+def _index(path, options: IndexOptions, device, service, stores) -> IndexStats:
     project = Path(path).resolve()
     db_path, root = get_db_path_smart(project, options.store_path, options.force,
                                       options.global_db)
@@ -262,58 +271,63 @@ def index(path: str | Path = ".", options: IndexOptions | None = None,
     if options.dry_run:
         return _dry_run(db_path, root, options, stats)
 
-    if options.force and db_path.exists() and stores is None:
-        info_print(f"force rebuild: deleting {db_path}")
-        shutil.rmtree(db_path, ignore_errors=True)
-    meta = read_metadata(db_path)
-    model_name = meta.get("model", options.model) if not options.force else options.model
-    if stores is not None:
-        device = stores[0].device
-    if service is None or service.model_name != model_name:
-        service = EmbeddingService(model_name, db_path=db_path, device=device)
-    if meta and meta.get("embedder_version", 1) != EMBEDDER_VERSION:
-        info_print(f"embedder version changed (v{meta.get('embedder_version', 1)} "
-                   f"→ v{EMBEDDER_VERSION}): full rebuild")
-        if stores is None:
+    with span("cs.index.open"):
+        if options.force and db_path.exists() and stores is None:
+            info_print(f"force rebuild: deleting {db_path}")
             shutil.rmtree(db_path, ignore_errors=True)
-        else:
-            invalidate_for_embedder_version(db_path, service, stores)
-        meta = {}
+        meta = read_metadata(db_path)
+        model_name = meta.get("model", options.model) if not options.force else options.model
+        if stores is not None:
+            device = stores[0].device
+        if service is None or service.model_name != model_name:
+            service = EmbeddingService(model_name, db_path=db_path, device=device)
+        if meta and meta.get("embedder_version", 1) != EMBEDDER_VERSION:
+            info_print(f"embedder version changed (v{meta.get('embedder_version', 1)} "
+                       f"→ v{EMBEDDER_VERSION}): full rebuild")
+            if stores is None:
+                shutil.rmtree(db_path, ignore_errors=True)
+            else:
+                invalidate_for_embedder_version(db_path, service, stores)
+            meta = {}
 
-    db_path.mkdir(parents=True, exist_ok=True)
-    if db_path.parent == root:
-        ensure_db_ignored(root)
-    if stores is not None:
-        store, fts = stores
-        stats.int8 = store.int8
-    else:
-        stats.int8 = options.int8 or bool(meta.get("int8", False))
-        store = VectorStore(db_path, dims=service.dims, int8=stats.int8, device=device)
-        fts = FtsStore(db_path / FTS_DIR_NAME, device=device)
-    file_meta = FileMetaStore.load_or_create(db_path, service.model_name)
+        db_path.mkdir(parents=True, exist_ok=True)
+        if db_path.parent == root:
+            ensure_db_ignored(root)
+        if stores is not None:
+            store, fts = stores
+            stats.int8 = store.int8
+        else:
+            stats.int8 = options.int8 or bool(meta.get("int8", False))
+            store = VectorStore(db_path, dims=service.dims, int8=stats.int8, device=device)
+            fts = FtsStore(db_path / FTS_DIR_NAME, device=device)
+        file_meta = FileMetaStore.load_or_create(db_path, service.model_name)
 
     # ---- walk + incremental diff ----------------------------------------
-    files, walk_stats = FileWalker(root, extra_excludes=list(options.extra_excludes)).walk()
+    with span("cs.index.walk") as sp:
+        files, walk_stats = FileWalker(root, extra_excludes=list(options.extra_excludes)).walk()
+        if sp:
+            sp.add(files=len(files))
     stats.files_walked = len(files)
     if walk_stats.by_language:
         stats.primary_language = max(walk_stats.by_language.items(), key=lambda kv: kv[1])[0]
     changed: list = []
     hashes: dict[str, str] = {}
-    for f in files:
-        check = file_meta.check_file(f.path)
-        if check.changed:
-            changed.append(f)
-            if check.sha256:
-                hashes[normalize_path(f.path)] = check.sha256
-        else:
-            stats.files_unchanged += 1
-    for dpath in file_meta.find_deleted_files({str(f.path) for f in files}):
-        old_ids = file_meta.remove_file(dpath)
-        if old_ids:
-            stats.chunks_deleted += store.delete_chunks(old_ids)
-            for cid in old_ids:
-                fts.delete_chunk(cid)
-        stats.files_deleted += 1
+    with span("cs.index.diff"):
+        for f in files:
+            check = file_meta.check_file(f.path)
+            if check.changed:
+                changed.append(f)
+                if check.sha256:
+                    hashes[normalize_path(f.path)] = check.sha256
+            else:
+                stats.files_unchanged += 1
+        for dpath in file_meta.find_deleted_files({str(f.path) for f in files}):
+            old_ids = file_meta.remove_file(dpath)
+            if old_ids:
+                stats.chunks_deleted += store.delete_chunks(old_ids)
+                for cid in old_ids:
+                    fts.delete_chunk(cid)
+            stats.files_deleted += 1
     info_print(f"indexing {len(changed)} changed files "
                f"({stats.files_unchanged} unchanged, {stats.files_deleted} deleted)")
 
@@ -330,21 +344,24 @@ def index(path: str | Path = ".", options: IndexOptions | None = None,
         ids: list[int] = []
         if flat:
             embs = finish()
-            metas = [
-                ChunkMetadata(
-                    path=c.path, content=c.content, start_line=c.start_line,
-                    end_line=c.end_line, kind=c.kind.value, context=c.context,
-                    signature=c.signature, docstring=c.docstring, hash=c.hash,
-                    language=getattr(c, "_language", None))
-                for c in flat
-            ]
-            ids = store.insert_chunks_with_ids(embs, metas)
+            with span("cs.store.insert"):
+                metas = [
+                    ChunkMetadata(
+                        path=c.path, content=c.content, start_line=c.start_line,
+                        end_line=c.end_line, kind=c.kind.value, context=c.context,
+                        signature=c.signature, docstring=c.docstring, hash=c.hash,
+                        language=getattr(c, "_language", None))
+                    for c in flat
+                ]
+                ids = store.insert_chunks_with_ids(embs, metas)
             try:
-                fts.add_chunks([(cid, m.content, m.path, m.signature, m.kind)
-                                for cid, m in zip(ids, metas)])
+                with span("cs.fts.add"):
+                    fts.add_chunks([(cid, m.content, m.path, m.signature, m.kind)
+                                    for cid, m in zip(ids, metas)])
                 since_commit += len(ids)
                 if since_commit >= FTS_COMMIT_EVERY:
-                    fts.commit()
+                    with span("cs.fts.commit"):
+                        fts.commit()
                     since_commit = 0
             except Exception as e:  # FTS failures are non-fatal: vectors stay usable
                 warn_print(f"FTS indexing failed (vector search unaffected): {e}")
@@ -367,24 +384,28 @@ def index(path: str | Path = ".", options: IndexOptions | None = None,
         batch_files = changed[i:i + EMBED_FILES_PER_BATCH]
         i += len(batch_files)
         per_file: list[tuple[Path, list]] = []
-        for f in batch_files:
-            try:
-                content = f.path.read_text(encoding="utf-8", errors="replace")
-            except OSError:
-                continue
-            rel = f.path.relative_to(root) if f.path.is_relative_to(root) else f.path
-            chunks = chunker.chunk_semantic(f.language, rel, content)
-            if deduper is not None:
-                chunks = deduper.deduplicate(chunks)
-            for c in chunks:
-                c._language = f.language.display_name  # type: ignore[attr-defined]
-            per_file.append((f.path, chunks))
-        for fpath, _ in per_file:
-            old_ids = file_meta.chunk_ids_for(fpath)
-            if old_ids:
-                stats.chunks_deleted += store.delete_chunks(old_ids)
-                for cid in old_ids:
-                    fts.delete_chunk(cid)
+        with span("cs.index.chunk", files=len(batch_files)) as sp:
+            for f in batch_files:
+                try:
+                    content = f.path.read_text(encoding="utf-8", errors="replace")
+                except OSError:
+                    continue
+                rel = f.path.relative_to(root) if f.path.is_relative_to(root) else f.path
+                chunks = chunker.chunk_semantic(f.language, rel, content)
+                if deduper is not None:
+                    chunks = deduper.deduplicate(chunks)
+                for c in chunks:
+                    c._language = f.language.display_name  # type: ignore[attr-defined]
+                per_file.append((f.path, chunks))
+            if sp:
+                sp.add(chunks=sum(len(cs) for _, cs in per_file))
+        with span("cs.index.diff"):
+            for fpath, _ in per_file:
+                old_ids = file_meta.chunk_ids_for(fpath)
+                if old_ids:
+                    stats.chunks_deleted += store.delete_chunks(old_ids)
+                    for cid in old_ids:
+                        fts.delete_chunk(cid)
         flat = [c for _, cs in per_file for c in cs]
         finish = service.embed_chunks_matrix_async(flat) if flat else None
         if pending is not None:
@@ -394,18 +415,19 @@ def index(path: str | Path = ".", options: IndexOptions | None = None,
         _finalize(pending)
 
     # ---- finalize -----------------------------------------------------------
-    progress.finish()
-    store.build_index()
-    store.save()
-    try:
-        fts.commit()
-    except Exception as e:  # non-fatal, as above
-        warn_print(f"FTS commit failed: {e}")
-    file_meta.save()
-    write_metadata(db_path, service, stats)
+    with span("cs.index.finalize"):
+        progress.finish()
+        store.build_index()
+        store.save()
+        try:
+            with span("cs.fts.commit"):
+                fts.commit()
+        except Exception as e:  # non-fatal, as above
+            warn_print(f"FTS commit failed: {e}")
+        file_meta.save()
+        write_metadata(db_path, service, stats)
     if deduper is not None:
         stats.chunks_deduped = deduper.stats.duplicates
-    stats.elapsed_s = time.time() - t0
     if stats.cancelled:
         info_print("indexing cancelled — partial progress saved; re-run to complete")
     return stats

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
-import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -36,6 +35,7 @@ from ..rerank.neural import NeuralReranker
 from ..utils.constants import EMBEDDER_VERSION, FTS_DIR_NAME
 from ..utils.device import resolve_device, to_host
 from ..utils.errors import SearchError
+from ..utils.tracing import stage
 from ..vectordb import VectorStore
 from .analysis import (
     DOC_PATH_PENALTY,
@@ -212,50 +212,58 @@ class SearchSession:
         if cached is not None:
             cached.timings_ms["cached"] = True
             return cached
+        with stage("cs.search.query") as whole:
+            resp = self._search_fresh(query, options, whole)
+        self._resp_cache.put(key, resp)
+        return resp
 
-        t_all = time.time()
+    def _search_fresh(self, query: str, options: SearchOptions, whole) -> SearchResponse:
+        """One query past the response cache. Its ``timings_ms`` are the
+        stages' spans on the monotonic clock: ``embed`` (featurization and
+        BM25 planning, host only), ``vector`` (the device call to the
+        readback of its results and their unpacking), ``fusion`` (host),
+        ``rerank`` (the cross-encoder, to its scores on the host), ``total``
+        (``whole``)."""
         timings: dict[str, float] = {}
-        t = time.time()
-        st = self._prep_query(query, options)
-        timings["embed"] = (time.time() - t) * 1000
+        with stage("cs.search.featurize") as t:
+            st = self._prep_query(query, options)
+        timings["embed"] = t.ms
         identifiers, intent, fetch = st["identifiers"], st["intent"], st["fetch"]
         fused, feats, bm_args = st["fused"], st["feats"], st["bm"]
         backend = self.service.backend
         fused_fts = None
         exact_prefetched = None
-        t = time.time()
-        if bm_args is not None:
-            if fused == "hash":
-                dev_out = self.store.hybrid_search_featurized(
-                    backend.model.table, feats[0], feats[1], fetch, bm_args,
-                    raw=True, defer=True)
+        with stage("cs.search.dispatch") as t:
+            if bm_args is not None:
+                if fused == "hash":
+                    dev_out = self.store.hybrid_search_featurized(
+                        backend.model.table, feats[0], feats[1], fetch, bm_args,
+                        raw=True, defer=True)
+                else:
+                    dev_out = self.store.hybrid_search_encoded(
+                        backend.encoder, feats[0], feats[1], fetch, bm_args,
+                        raw=True, defer=True)
+                # the device call is queued: run the host-side exact-identifier
+                # scans while it computes
+                if identifiers and options.mode == "hybrid":
+                    exact_prefetched = []
+                    for ident in identifiers:
+                        exact_prefetched.extend(self.fts.search_exact(
+                            ident, kind=intent.value if intent else None, limit=fetch))
+                vv, vi, bv, bi = to_host(*dev_out)
+                raw = self.store.rows_to_ids(vv, vi)
+                fused_fts = self.fts.results_from_device(bv, bi, fetch)
+            elif fused == "hash":
+                raw = self.store.search_featurized_auto(
+                    backend.model, feats[0], feats[1], fetch, raw=True)
             else:
-                dev_out = self.store.hybrid_search_encoded(
-                    backend.encoder, feats[0], feats[1], fetch, bm_args,
-                    raw=True, defer=True)
-            # the device call is queued: run the host-side exact-identifier
-            # scans while it computes
-            if identifiers and options.mode == "hybrid":
-                exact_prefetched = []
-                for ident in identifiers:
-                    exact_prefetched.extend(self.fts.search_exact(
-                        ident, kind=intent.value if intent else None, limit=fetch))
-            vv, vi, bv, bi = to_host(*dev_out)
-            raw = self.store.rows_to_ids(vv, vi)
-            fused_fts = self.fts.results_from_device(bv, bi, fetch)
-        elif fused == "hash":
-            raw = self.store.search_featurized_auto(
-                backend.model, feats[0], feats[1], fetch, raw=True)
-        else:
-            raw = self.store.search_encoded(
-                backend.encoder, feats[0], feats[1], fetch, raw=True)
-        vector_ranked = self._dedup_raw(raw, fetch)
-        timings["vector"] = (time.time() - t) * 1000
-        resp = self._finish(
+                raw = self.store.search_encoded(
+                    backend.encoder, feats[0], feats[1], fetch, raw=True)
+            vector_ranked = self._dedup_raw(raw, fetch)
+        timings["vector"] = t.ms
+        return self._finish(
             query, options, identifiers, intent, st["vk"], st["fk"], fetch,
-            vector_ranked, fused_fts, exact_prefetched, timings, t_all)
-        self._resp_cache.put(key, resp)
-        return resp
+            vector_ranked, fused_fts, exact_prefetched, timings, whole)
 
     @staticmethod
     def _dedup_raw(raw, fetch: int) -> list[tuple[int, float]]:
@@ -280,42 +288,43 @@ class SearchSession:
 
     def _finish(
         self, query, options, identifiers, intent, vector_k, fts_k, fetch,
-        vector_ranked, fused_fts, exact_prefetched, timings, t_all,
+        vector_ranked, fused_fts, exact_prefetched, timings, whole,
     ) -> SearchResponse:
         """Post-retrieval stages: early termination → fusion →
         boost-bounded lazy materialization → filters → optional rerank →
-        response."""
+        response. ``whole`` is the open stage whose time so far is the
+        response's ``total``."""
         # ---- early termination (search/mod.rs:595-621) -------------------
         top5 = [s for _, s in vector_ranked[:5]]
         confident = len(top5) >= 5 and min(top5) > EARLY_TERMINATION_SCORE
         use_hybrid = options.mode == "hybrid" and not confident
 
-        t = time.time()
-        if use_hybrid:
-            fts_results = fused_fts if fused_fts is not None else self.fts.search(
-                query, limit=fetch,
-                boost_kind=intent.value if intent else None,
-            )
-            if exact_prefetched is not None:
-                exact_results = exact_prefetched
-            else:
-                exact_results = []
-                for ident in identifiers:
-                    exact_results.extend(
-                        self.fts.search_exact(
-                            ident, kind=intent.value if intent else None,
-                            limit=fetch,
+        with stage("cs.search.fusion") as t:
+            if use_hybrid:
+                fts_results = fused_fts if fused_fts is not None else self.fts.search(
+                    query, limit=fetch,
+                    boost_kind=intent.value if intent else None,
+                )
+                if exact_prefetched is not None:
+                    exact_results = exact_prefetched
+                else:
+                    exact_results = []
+                    for ident in identifiers:
+                        exact_results.extend(
+                            self.fts.search_exact(
+                                ident, kind=intent.value if intent else None,
+                                limit=fetch,
+                            )
                         )
-                    )
-            fused = rrf_fusion_with_exact(
-                vector_ranked,
-                [(r.chunk_id, r.score) for r in fts_results],
-                [(r.chunk_id, r.score) for r in exact_results],
-                vector_k=vector_k, fts_k=fts_k,
-            )
-        else:
-            fused = vector_only(vector_ranked)
-        timings["fusion"] = (time.time() - t) * 1000
+                fused = rrf_fusion_with_exact(
+                    vector_ranked,
+                    [(r.chunk_id, r.score) for r in fts_results],
+                    [(r.chunk_id, r.score) for r in exact_results],
+                    vector_k=vector_k, fts_k=fts_k,
+                )
+            else:
+                fused = vector_only(vector_ranked)
+        timings["fusion"] = t.ms
 
         # ---- materialize hits (incl. FTS-only chunks), boosts inline -----
         # Metadata reads are lazy preads at corpus scale (vectordb/store.py)
@@ -405,26 +414,26 @@ class SearchSession:
         # ---- neural rerank blend (search/mod.rs:829-866) -----------------
         rerank_mode: str | None = None
         if options.rerank and hits:
-            t = time.time()
-            if self.reranker is None:
-                self.reranker = NeuralReranker(device=self.device)
-            rerank_mode = self.reranker.model.mode
-            n_rerank = (max(options.rerank_top, 0)
-                        if options.rerank_top is not None
-                        else max(100, options.limit))
-            cands = hits[:n_rerank]
-            reranked = self.reranker.rerank_and_blend(
-                query,
-                [(h.chunk_id, h.signature or h.content[:512]) for h in cands],
-                {h.chunk_id: h.score for h in cands},
-            )
-            order = {r.chunk_id: (i, r.final_score) for i, r in enumerate(reranked)}
-            cands.sort(key=lambda h: order.get(h.chunk_id, (len(order), 0.0))[0])
-            for h in cands:
-                if h.chunk_id in order:
-                    h.score = order[h.chunk_id][1]
-            hits = cands + hits[len(cands):]
-            timings["rerank"] = (time.time() - t) * 1000
+            with stage("cs.search.rerank") as t:
+                if self.reranker is None:
+                    self.reranker = NeuralReranker(device=self.device)
+                rerank_mode = self.reranker.model.mode
+                n_rerank = (max(options.rerank_top, 0)
+                            if options.rerank_top is not None
+                            else max(100, options.limit))
+                cands = hits[:n_rerank]
+                reranked = self.reranker.rerank_and_blend(
+                    query,
+                    [(h.chunk_id, h.signature or h.content[:512]) for h in cands],
+                    {h.chunk_id: h.score for h in cands},
+                )
+                order = {r.chunk_id: (i, r.final_score) for i, r in enumerate(reranked)}
+                cands.sort(key=lambda h: order.get(h.chunk_id, (len(order), 0.0))[0])
+                for h in cands:
+                    if h.chunk_id in order:
+                        h.score = order[h.chunk_id][1]
+                hits = cands + hits[len(cands):]
+            timings["rerank"] = t.ms
             # path filter re-applied post-rerank (search/mod.rs:869-882)
             if options.path_filter:
                 needle = options.path_filter
@@ -442,7 +451,7 @@ class SearchSession:
                     seen_per_file[h.path] = c + 1
             hits = capped
         hits = hits[: options.limit]
-        timings["total"] = (time.time() - t_all) * 1000
+        timings["total"] = whole.elapsed_ms()
         return SearchResponse(
             hits=hits,
             query=query,
@@ -539,10 +548,10 @@ class SearchSession:
                 exact.extend(self.fts.search_exact(ident, kind=kind, limit=st["fetch"]))
             st["exact"] = exact
 
-    def _respond(self, st, options, vector_ranked, fused_fts, t_all) -> SearchResponse:
+    def _respond(self, st, options, vector_ranked, fused_fts, wave) -> SearchResponse:
         resp = self._finish(
             st["query"], options, st["identifiers"], st["intent"], st["vk"], st["fk"],
-            st["fetch"], vector_ranked, fused_fts, st.get("exact"), {}, t_all)
+            st["fetch"], vector_ranked, fused_fts, st.get("exact"), {}, wave)
         self._resp_cache.put(st["key"], resp)
         return resp
 
@@ -550,7 +559,12 @@ class SearchSession:
         options = options or SearchOptions()
         if options.rerank:
             return [self.search(q, options) for q in queries]
-        t_all = time.time()
+        with stage("cs.search.wave") as wave:
+            return self._search_wave(queries, options, wave)
+
+    def _search_wave(self, queries, options, wave) -> list[SearchResponse]:
+        """The wave's one device call; each response's ``total`` is the
+        wave's time up to it (``wave``, an open stage)."""
         out, pending = self._cached_or_prep(queries, options)
         live = [st for st in pending if st is not None]
         if not live:
@@ -616,7 +630,7 @@ class SearchSession:
             fused_fts = None
             if st["bm"] is not None:
                 fused_fts = self.fts.results_from_device(bv[st["hi"]], bi[st["hi"]], fq)
-            out[qi] = self._respond(st, options, vector_ranked, fused_fts, t_all)
+            out[qi] = self._respond(st, options, vector_ranked, fused_fts, wave)
         return out  # type: ignore[return-value]
 
     def _search_many_waves(self, queries, options=None) -> list[SearchResponse]:

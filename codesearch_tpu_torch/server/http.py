@@ -99,6 +99,7 @@ def _make_handler(state: ServerState):
                         "uptime_s": round(time.time() - state.started_at, 1),
                         "batch_waves": state.batcher.waves,
                         "batched_queries": state.batcher.batched_queries,
+                        "batch_queue_wait_s": state.batcher.queue_wait_s,
                         # live serving state: THIS process's plane routing
                         # (a latched OOM degrade shows up here first)
                         "serving": serving,

@@ -19,6 +19,8 @@ from __future__ import annotations
 import threading
 import time
 
+import numpy as np
+
 from ..fts.store import stack_wave
 from ..models.hash_embedder import batch_features
 from ..rerank.fusion import rrf_fusion_with_exact
@@ -38,15 +40,23 @@ from ..search.analysis import (
 )
 from ..search.degrade import dispatch_with_degrade
 from ..utils.device import to_host
+from ..utils.tracing import span
 
 
 def _featurize(service, texts: list[str]):
     """Host featurization of query texts (the model's query prefix applied):
-    hash features, or token ids and mask for a BERT-family model."""
-    prefixed = [service.spec.query_prefix + t for t in texts]
-    if service.fused_kind() == "hash":
-        return batch_features(prefixed)
-    return service.backend.featurize_queries(prefixed)
+    hash features, or token ids and mask for a BERT-family model. The span
+    counts the real token positions and the padding beside them."""
+    with span("cs.readplane.featurize") as sp:
+        prefixed = [service.spec.query_prefix + t for t in texts]
+        if service.fused_kind() == "hash":
+            feats = batch_features(prefixed)
+        else:
+            feats = service.backend.featurize_queries(prefixed)
+        if sp:
+            real = int(np.count_nonzero(feats[1]))
+            sp.add(tokens=real, padded=int(feats[1].size) - real)
+        return feats
 
 
 def device_candidates(stores, service, query: str, kind: str | None, fetch: int):
@@ -57,7 +67,8 @@ def device_candidates(stores, service, query: str, kind: str | None, fetch: int)
     backend = service.backend
     fres = None
     feats = _featurize(service, [parse_operators(query)[0] or query])
-    bm = stores.fts.device_query_args(query, kind, fetch)
+    with span("cs.fts.plan"):
+        bm = stores.fts.device_query_args(query, kind, fetch)
     if bm is not None:
         if service.fused_kind() == "hash":
             per_variant, bvv, bii = stores.store.hybrid_search_featurized(
@@ -67,7 +78,8 @@ def device_candidates(stores, service, query: str, kind: str | None, fetch: int)
                 backend.encoder, feats[0], feats[1], fetch, bm)
         vres = per_variant[0]
         if bvv is not None:
-            fres = stores.fts.results_from_device(bvv, bii, fetch)
+            with span("cs.readplane.unpack"):
+                fres = stores.fts.results_from_device(bvv, bii, fetch)
     elif service.fused_kind() == "hash":
         # routed: small corpora score the vector leg on host numpy (same
         # decision point as the session pipeline)
@@ -157,15 +169,19 @@ class DynamicBatcher:
         self._mu = threading.Lock()
         self._pending: list[DynamicBatcher._Slot] = []
         self._last_arrival = 0.0
-        # observability (reported by /status)
+        # observability (reported by /status): waves, the queries they
+        # carried, and the seconds those queries waited between get() and
+        # their wave's dispatch, summed
         self.waves = 0
         self.batched_queries = 0
+        self.queue_wait_s = 0.0
 
     class _Slot:
-        __slots__ = ("query", "kind", "fetch", "done", "result", "error")
+        __slots__ = ("query", "kind", "fetch", "arrived", "done", "result", "error")
 
         def __init__(self, query, kind, fetch):
             self.query, self.kind, self.fetch = query, kind, fetch
+            self.arrived = time.monotonic()
             self.done = threading.Event()
             self.result = None
             self.error: BaseException | None = None
@@ -199,6 +215,10 @@ class DynamicBatcher:
             del self._pending[: len(wave)]
         try:
             with self.stores.lock:
+                dispatched = time.monotonic()
+                waited = sum(dispatched - s.arrived for s in wave)
+                with self._mu:
+                    self.queue_wait_s += waited
                 # serving gets the same device-memory degrade as the CLI
                 # session: release score planes on device OOM, retry once
                 results = dispatch_with_degrade(
@@ -264,26 +284,27 @@ def rank_candidates(
     wants_tests = query_wants_tests(query)
     wants_docs = query_wants_docs(query)
     scored = []
-    for f in fused:
-        meta = stores.store.get_chunk(f.chunk_id)
-        if meta is None:
-            continue
-        if filter_path and filter_path not in meta.path:
-            continue
-        if has_ops and not passes_operators(
-            meta.content, req_matchers, excl_matchers
-        ):
-            continue
-        score = f.rrf_score
-        if primary and meta.language == primary:
-            score *= 1.2
-        if kind and meta.kind == kind:
-            score *= 1.15
-        if not wants_tests and is_test_path(meta.path):
-            score *= TEST_PATH_PENALTY
-        if not wants_docs and is_doc_path(meta.path):
-            score *= DOC_PATH_PENALTY
-        scored.append((score, f.chunk_id, meta))
+    with span("cs.rank.materialize"):
+        for f in fused:
+            meta = stores.store.get_chunk(f.chunk_id)
+            if meta is None:
+                continue
+            if filter_path and filter_path not in meta.path:
+                continue
+            if has_ops and not passes_operators(
+                meta.content, req_matchers, excl_matchers
+            ):
+                continue
+            score = f.rrf_score
+            if primary and meta.language == primary:
+                score *= 1.2
+            if kind and meta.kind == kind:
+                score *= 1.15
+            if not wants_tests and is_test_path(meta.path):
+                score *= TEST_PATH_PENALTY
+            if not wants_docs and is_doc_path(meta.path):
+                score *= DOC_PATH_PENALTY
+            scored.append((score, f.chunk_id, meta))
     scored.sort(key=lambda x: -x[0])
     return scored[:limit]
 
@@ -305,27 +326,33 @@ def ranked_chunks(
     Without ``batcher`` the caller holds stores.lock (MCP's serial stdio
     plane). With ``batcher`` the caller must NOT hold the lock: the device
     dispatch rides the micro-batching wave (which locks internally) and
-    only the ranking phase takes the lock here."""
-    intent = detect_structural_intent(query)
-    kind = intent.value if intent else None
-    vector_k, fts_k = adapt_rrf_k(query)
-    fetch = _serving_fetch(query, limit)
-    if batcher is not None:
-        vpairs, fres = batcher.get(query, kind, fetch)
-        with stores.lock:
+    only the ranking phase takes the lock here. Spans: ``cs.readplane.query``
+    around it all, ``cs.readplane.candidates`` and ``cs.readplane.rank``
+    around its two stages."""
+    with span("cs.readplane.query"):
+        intent = detect_structural_intent(query)
+        kind = intent.value if intent else None
+        vector_k, fts_k = adapt_rrf_k(query)
+        fetch = _serving_fetch(query, limit)
+        if batcher is not None:
+            with span("cs.readplane.candidates"):
+                vpairs, fres = batcher.get(query, kind, fetch)
+            with stores.lock, span("cs.readplane.rank"):
+                return rank_candidates(
+                    stores, metadata, query, limit, kind, vector_k, fts_k,
+                    vpairs, fres, filter_path,
+                )
+        with span("cs.readplane.candidates"):
+            vres, fres = dispatch_with_degrade(
+                stores.fts,
+                lambda: device_candidates(stores, service, query, kind, fetch),
+                "serving search",
+            )
+        with span("cs.readplane.rank"):
             return rank_candidates(
                 stores, metadata, query, limit, kind, vector_k, fts_k,
-                vpairs, fres, filter_path,
+                [(r.chunk_id, r.score) for r in vres], fres, filter_path,
             )
-    vres, fres = dispatch_with_degrade(
-        stores.fts,
-        lambda: device_candidates(stores, service, query, kind, fetch),
-        "serving search",
-    )
-    return rank_candidates(
-        stores, metadata, query, limit, kind, vector_k, fts_k,
-        [(r.chunk_id, r.score) for r in vres], fres, filter_path,
-    )
 
 
 def _serving_fetch(query: str, limit: int) -> int:

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .tracing import span
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` or ``"cuda"`` -> the current CUDA device (raises when there is
@@ -36,9 +38,11 @@ def resolve_device(device=None) -> torch.device:
 def to_host(*tensors):
     """Numpy copies of device tensors with ONE wait for each device: every
     copy is queued first, then each device's stream is synchronised once.
-    Numpy arrays pass through."""
-    outs = [t.to("cpu", non_blocking=True) if isinstance(t, torch.Tensor) else t
-            for t in tensors]
-    for dev in {t.device for t in tensors if isinstance(t, torch.Tensor) and t.is_cuda}:
-        torch.cuda.current_stream(dev).synchronize()
-    return [o.numpy() if isinstance(o, torch.Tensor) else o for o in outs]
+    Numpy arrays pass through. The one place where the host waits on the
+    device: the span ``cs.device.readback``."""
+    with span("cs.device.readback"):
+        outs = [t.to("cpu", non_blocking=True) if isinstance(t, torch.Tensor) else t
+                for t in tensors]
+        for dev in {t.device for t in tensors if isinstance(t, torch.Tensor) and t.is_cuda}:
+            torch.cuda.current_stream(dev).synchronize()
+        return [o.numpy() if isinstance(o, torch.Tensor) else o for o in outs]

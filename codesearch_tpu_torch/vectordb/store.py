@@ -89,6 +89,7 @@ from ..utils.constants import (
 from ..utils.errors import DatabaseError
 from ..utils.growbuf import GrowBuf
 from ..utils.logger import get_logger
+from ..utils.tracing import span
 from . import device_ops
 
 log = get_logger("vectordb")
@@ -1109,19 +1110,20 @@ class VectorStore:
         """(scores, row indices) -> (chunk ids [V, k] int64 with -1 for dead
         or padding rows, scores [V, k] f32)."""
         vals, idx = to_host(vals, idx)
-        with self._lock:
-            id_map = self._cids.view()
-            n = len(id_map)
-            if n == 0:
-                return np.full(idx.shape, -1, np.int64), vals
-            cids = id_map[np.clip(idx, 0, n - 1)]
-        bad = (idx >= n) | (idx < 0) | (vals < -1e29)
-        return np.where(bad, -1, cids), vals
+        with span("cs.readplane.unpack"):
+            with self._lock:
+                id_map = self._cids.view()
+                n = len(id_map)
+                if n == 0:
+                    return np.full(idx.shape, -1, np.int64), vals
+                cids = id_map[np.clip(idx, 0, n - 1)]
+            bad = (idx >= n) | (idx < 0) | (vals < -1e29)
+            return np.where(bad, -1, cids), vals
 
     def _materialize(self, vals, idx) -> list[list[SearchResult]]:
         vals, idx = to_host(vals, idx)
         out: list[list[SearchResult]] = []
-        with self._lock:
+        with span("cs.readplane.unpack"), self._lock:
             cids = self._cids.view()
             valid = self._valid.view()
             for qi in range(vals.shape[0]):
@@ -1147,20 +1149,22 @@ class VectorStore:
     def search_featurized(self, table, ids: np.ndarray, weights: np.ndarray,
                           limit: int, raw: bool = False):
         """Featurized hash-model queries -> embed + exact top-k in one call."""
-        with self._lock:
-            n_valid = self._n_valid()
-            if n_valid == 0:
-                return self._empty(ids.shape[0], raw)
-            dev = self._ensure_device()
-            k = min(limit, max(1, n_valid))
-            ids_t, w_t = self._dev_tensor(ids), self._dev_tensor(weights)
-            if dev[0] == "int8":
-                vals, idx = hash_embed_search_int8(table, ids_t, w_t, dev[1], dev[2], dev[3], k)
-            else:
-                vals, idx = hash_embed_search(table, ids_t, w_t, dev[1], dev[3], k)
-        if raw:
-            return self.rows_to_ids(vals, idx)
-        return self._materialize(vals, idx)
+        with span("cs.store.dispatch"):
+            with self._lock:
+                n_valid = self._n_valid()
+                if n_valid == 0:
+                    return self._empty(ids.shape[0], raw)
+                dev = self._ensure_device()
+                k = min(limit, max(1, n_valid))
+                ids_t, w_t = self._dev_tensor(ids), self._dev_tensor(weights)
+                if dev[0] == "int8":
+                    vals, idx = hash_embed_search_int8(table, ids_t, w_t, dev[1], dev[2],
+                                                       dev[3], k)
+                else:
+                    vals, idx = hash_embed_search(table, ids_t, w_t, dev[1], dev[3], k)
+            if raw:
+                return self.rows_to_ids(vals, idx)
+            return self._materialize(vals, idx)
 
     def wants_host_path(self) -> bool:
         """Should queries score on host? True for corpora small enough that
@@ -1233,20 +1237,22 @@ class VectorStore:
                        raw: bool = False):
         """Tokenized BERT-family queries -> encoder forward + exact top-k in
         one call (the JAX store's ``params, cfg`` are ``encoder``)."""
-        with self._lock:
-            n_valid = self._n_valid()
-            if n_valid == 0:
-                return self._empty(ids.shape[0], raw)
-            dev = self._ensure_device()
-            k = min(limit, max(1, n_valid))
-            ids_t, m_t = self._dev_tensor(ids), self._dev_tensor(mask)
-            if dev[0] == "int8":
-                vals, idx = bert_embed_search_int8(encoder, ids_t, m_t, dev[1], dev[2], dev[3], k)
-            else:
-                vals, idx = bert_embed_search(encoder, ids_t, m_t, dev[1], dev[3], k)
-        if raw:
-            return self.rows_to_ids(vals, idx)
-        return self._materialize(vals, idx)
+        with span("cs.store.dispatch"):
+            with self._lock:
+                n_valid = self._n_valid()
+                if n_valid == 0:
+                    return self._empty(ids.shape[0], raw)
+                dev = self._ensure_device()
+                k = min(limit, max(1, n_valid))
+                ids_t, m_t = self._dev_tensor(ids), self._dev_tensor(mask)
+                if dev[0] == "int8":
+                    vals, idx = bert_embed_search_int8(encoder, ids_t, m_t, dev[1], dev[2],
+                                                       dev[3], k)
+                else:
+                    vals, idx = bert_embed_search(encoder, ids_t, m_t, dev[1], dev[3], k)
+            if raw:
+                return self.rows_to_ids(vals, idx)
+            return self._materialize(vals, idx)
 
     def hybrid_search_featurized(self, table, ids: np.ndarray, weights: np.ndarray,
                                  limit: int, bm_args, raw: bool = False,
@@ -1281,21 +1287,24 @@ class VectorStore:
         return bm, dense
 
     def _hybrid(self, fn_bf16, fn_int8, model, ids, aux, limit, bm_args, raw, defer):
-        with self._lock:
-            n_valid = self._n_valid()
-            if n_valid == 0:
-                if defer:
-                    nq = ids.shape[0]
-                    return (np.zeros((nq, 0), np.float32), np.zeros((nq, 0), np.int32),
-                            np.zeros(0, np.float32), np.zeros(0, np.int32))
-                return self._empty(ids.shape[0], raw), None, None
-            out = self._fused(fn_bf16, fn_int8, model, ids, aux, limit, bm_args, n_valid)
-        if defer:
-            return out
-        vv, vi, bv, bi = to_host(*out)
-        if raw:
-            return self.rows_to_ids(vv, vi), bv, bi
-        return self._materialize(vv, vi), bv, bi
+        """The span ``cs.store.dispatch``: its own time is the launch, its
+        children the readback and the unpacking."""
+        with span("cs.store.dispatch"):
+            with self._lock:
+                n_valid = self._n_valid()
+                if n_valid == 0:
+                    if defer:
+                        nq = ids.shape[0]
+                        return (np.zeros((nq, 0), np.float32), np.zeros((nq, 0), np.int32),
+                                np.zeros(0, np.float32), np.zeros(0, np.int32))
+                    return self._empty(ids.shape[0], raw), None, None
+                out = self._fused(fn_bf16, fn_int8, model, ids, aux, limit, bm_args, n_valid)
+            if defer:
+                return out
+            vv, vi, bv, bi = to_host(*out)
+            if raw:
+                return self.rows_to_ids(vv, vi), bv, bi
+            return self._materialize(vv, vi), bv, bi
 
     def _fused(self, fn_bf16, fn_int8, model, ids, aux, limit, bm_args, n_valid):
         """Launch one fused call on the device corpus; the caller holds the
@@ -1309,7 +1318,7 @@ class VectorStore:
         return fn_bf16(model, ids_t, aux_t, dev[1], dev[3], kv, *bm, **dense)
 
     def _many(self, fn_bf16, fn_int8, model, ids, aux, limit, bm_args):
-        with self._lock:
+        with span("cs.store.dispatch"), self._lock:
             n_valid = self._n_valid()
             if n_valid == 0:
                 return None
