@@ -50,6 +50,14 @@ runs the same layers with the collectives GSPMD would insert:
 - every family: the word table split by vocabulary rows (ids clamped to
   the global table first, then ``vocab_parallel_lookup``).
 
+``encode`` replays an inference forward on CUDA as a CUDA graph when it
+can (``graph_key``): at most ``GRAPH_MAX_ROWS`` rows, not trainable, no
+mesh. The graph is the eager forward captured as it runs (kernel d's
+launches included), one per (rows rounded up to a power of two, S); a
+shape runs eagerly the first time it is seen, is captured the second time
+and replayed from the third, so a shape that never repeats costs nothing.
+Every other forward runs eagerly.
+
 ``gather_params()`` returns the full JAX-layout tree on rank 0;
 ``gather_tensors``/``shard_tensors`` move any per-parameter tensors
 (parameters, gradients, Adam moments) between a rank's shards and the
@@ -71,6 +79,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import os
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -78,10 +87,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import attention
 from ..ops.attention import alibi_bias, fused_encoder_attention
 from ..parallel import train_mesh as tm
 from ..utils.constants import get_config_dir
 from ..utils.device import resolve_device
+from ..utils.tracing import count
 from . import jax_random
 from .registry import ArchConfig
 
@@ -508,6 +519,116 @@ def _module_shard_dims(cfg: ArchConfig, specs: dict) -> dict[str, tuple[int, int
     return out
 
 
+# ---------------------------------------------------------------------------
+# CUDA graphs of the inference forward
+# ---------------------------------------------------------------------------
+
+GRAPH_MAX_ROWS = 64          # the read plane's largest wave (``DynamicBatcher.max_wave``)
+
+
+def graph_key(rows: int, seq: int, device_type: str, trainable: bool,
+              mesh) -> tuple[int, int] | None:
+    """The CUDA graph that replays an encoder forward of ``rows`` x ``seq``
+    ids on ``device_type``: (``rows`` rounded up to a power of two,
+    ``seq``). None for a forward that runs eagerly: not on CUDA, trainable,
+    on a mesh, or more than ``GRAPH_MAX_ROWS`` rows."""
+    if device_type != "cuda" or trainable or mesh is not None \
+            or not 0 < rows <= GRAPH_MAX_ROWS:
+        return None
+    return 1 << (rows - 1).bit_length(), seq
+
+
+def _launch_counters() -> tuple:
+    """``ops.attention``'s counters: a replay adds what its capture counted."""
+    return attention.launch_counts, attention.launches_by_seq, attention.composed_counts
+
+
+def _add_counts(counts: list[dict], sign: int = 1) -> None:
+    for counter, added in zip(_launch_counters(), counts):
+        for k, n in added.items():
+            counter[k] += sign * n
+
+
+class _ForwardGraphs:
+    """One encoder's inference forwards as CUDA graphs, one a ``graph_key``.
+    A key's first forward runs eagerly; its second runs the forward once on
+    a side stream (the warm-up, whose result it returns) and captures it;
+    every later one copies its ids and mask into the graph's static inputs
+    (padding rows: ids 0, mask 0) and replays the graph. The result is a new
+    tensor each time: a clone of the static output's real rows, so no later
+    replay overwrites what an earlier call returned. The encoder's graphs
+    share one memory pool. ``lock`` covers the copy-in, the replay and the
+    clone, since callers on several threads may share one encoder.
+
+    The eager forward comes with each call: held here, it would make the
+    encoder a reference cycle, which only the garbage collector frees,
+    weights and graphs included."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.seen: set = set()
+        # key -> (graph, static ids, static mask, static output, launch counts)
+        self.graphs: dict = {}
+        self.pool = None
+        self.side = None
+
+    def __call__(self, forward, key, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        n = ids.shape[0]
+        with self.lock, torch.cuda.device(ids.device):
+            entry = self.graphs.get(key)
+            if entry is None:
+                if key not in self.seen:
+                    self.seen.add(key)
+                    count("encoder.eager_forwards")
+                    return forward(ids, mask)
+                return self._capture(forward, key, ids, mask)
+            graph, s_ids, s_mask, s_out, counts = entry
+            s_ids[:n].copy_(ids)
+            s_mask[:n].copy_(mask)
+            if n < key[0]:
+                s_ids[n:].zero_()
+                s_mask[n:].zero_()
+            graph.replay()
+            _add_counts(counts)
+            count("encoder.graph_replays")
+            return s_out[:n].clone()
+
+    def _capture(self, forward, key, ids, mask) -> torch.Tensor:
+        rows, seq = key
+        n = ids.shape[0]
+        s_ids = ids.new_zeros(rows, seq)
+        s_mask = mask.new_zeros(rows, seq)
+        s_ids[:n] = ids
+        s_mask[:n] = mask
+        if self.side is None:
+            self.side = torch.cuda.Stream()
+            self.pool = torch.cuda.graph_pool_handle()
+        main = torch.cuda.current_stream()
+        self.side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        # the capture is ``torch.cuda.graph``'s without its device-wide
+        # synchronize and ``empty_cache``, so the cached blocks stay for the
+        # eager batches that follow (an index call's); other threads (the
+        # servers') may use the device meanwhile
+        with torch.cuda.stream(self.side):
+            out = forward(s_ids, s_mask)
+            before = [dict(c) for c in _launch_counters()]
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                s_out = forward(s_ids, s_mask)
+            finally:
+                graph.capture_end()
+        main.wait_stream(self.side)
+        out.record_stream(main)
+        # the capture ran nothing on the device: its counts go to the replays
+        counts = [{k: c[k] - b.get(k, 0) for k in c if c[k] != b.get(k, 0)}
+                  for c, b in zip(_launch_counters(), before)]
+        _add_counts(counts, -1)
+        self.graphs[key] = (graph, s_ids, s_mask, s_out, counts)
+        count("encoder.graph_captures")
+        return out[:n]
+
+
 class BertEncoder(nn.Module):
     """An encoder of any registry family on ``device`` from a parameter tree
     (see the module docstring for the families, the two forms and the three
@@ -544,6 +665,7 @@ class BertEncoder(nn.Module):
         else:
             layers = (_BertLayer(cfg, p, self.device, trainable, mesh) for p in params["layers"])
         self.layers = nn.ModuleList(layers)
+        self._graphs = _ForwardGraphs()
 
     def _grad_mode(self):
         """Grad for the trainable form, ``torch.inference_mode()`` otherwise."""
@@ -646,8 +768,15 @@ class BertEncoder(nn.Module):
         return x
 
     def encode(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        """[B, S] ids + mask -> [B, hidden] L2-normalized f32 embeddings."""
+        """[B, S] ids + mask -> [B, hidden] L2-normalized f32 embeddings, a
+        new tensor. A forward that ``graph_key`` admits replays a CUDA graph
+        from the third time its key is seen (``_ForwardGraphs``)."""
         with self._grad_mode():
+            key = graph_key(*input_ids.shape, input_ids.device.type, self.trainable, self.mesh)
+            if key is not None:
+                return self._graphs(self._pooled, key, input_ids, attention_mask)
+            if input_ids.is_cuda and not self.trainable:
+                count("encoder.eager_forwards")
             return self._pooled(input_ids, attention_mask)
 
     def _pooled(self, input_ids, attention_mask):
