@@ -13,6 +13,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..families import family
 from ..gen.weights import make_weights, write_checkpoint
 from ..trace import Tracer
 
@@ -106,18 +107,14 @@ def reference_weights(ctx: Context) -> dict:
 def check_served_model(spec, home: Path, cfg: dict, dims: dict) -> None:
     """The program's registry entry serves the model the configuration
     states, with the hashing tokenizer (no vocabulary beside the weights),
-    or the run is not sound."""
-    a = spec.arch
+    or the run is not sound. Its ``ArchConfig`` is held to the sizes every
+    family has and to the attributes the family module's ``served`` names."""
     want = {"hidden": dims["hidden"], "layers": dims["layers"], "heads": dims["heads"],
-            "intermediate": dims["intermediate"], "vocab": dims["vocab"],
-            "eps": dims["eps"], "pooling": dims["pooling"],
-            "style": dims["family"], "query_prefix": cfg["query_prefix"]}
-    got = {"hidden": a.hidden, "layers": a.layers, "heads": a.heads,
-           "intermediate": a.intermediate, "vocab": a.vocab_size,
-           "eps": a.layer_norm_eps, "pooling": a.pooling,
-           "style": a.arch_style, "query_prefix": spec.query_prefix}
-    if dims["family"] == "nomic":
-        want["rope_base"], got["rope_base"] = dims["rope_base"], a.rope_base
+            "intermediate": dims["intermediate"], "vocab_size": dims["vocab"],
+            "layer_norm_eps": dims["eps"], "pooling": dims["pooling"],
+            **family(dims["family"]).served(dims)}
+    got = {name: getattr(spec.arch, name) for name in want}
+    want["query_prefix"], got["query_prefix"] = cfg["query_prefix"], spec.query_prefix
     if want != got:
         raise RuntimeError(f"the program serves {got}, the configuration states {want}")
     model_dir = home / "models" / spec.short_name

@@ -13,45 +13,17 @@ from pathlib import Path
 
 import torch
 
+from ..families import family
+
 DENSE_STD = 0.02
 NORM_STD = 0.1
 
 
 def tensor_specs(dims: dict) -> list[tuple[str, tuple, str]]:
-    """(name, shape, kind) of every tensor of the checkpoint; kind is
+    """(name, shape, kind) of every tensor of the checkpoint, in the order
+    the weights are drawn (the family module's ``tensor_specs``); kind is
     ``dense`` (N(0, 0.02)), ``norm`` (1 + N(0, 0.1)) or ``bias`` (N(0, 0.02))."""
-    h, i, v = dims["hidden"], dims["intermediate"], dims["vocab"]
-    out = [("embeddings.word_embeddings.weight", (v, h), "dense"),
-           ("embeddings.token_type_embeddings.weight", (dims["type_vocab"], h), "dense")]
-    if dims["family"] == "nomic":
-        out += [("emb_ln.weight", (h,), "norm"), ("emb_ln.bias", (h,), "bias")]
-        for n in range(dims["layers"]):
-            p = f"encoder.layers.{n}."
-            out += [(p + "attn.Wqkv.weight", (3 * h, h), "dense"),
-                    (p + "attn.out_proj.weight", (h, h), "dense"),
-                    (p + "norm1.weight", (h,), "norm"), (p + "norm1.bias", (h,), "bias"),
-                    (p + "mlp.fc11.weight", (i, h), "dense"),
-                    (p + "mlp.fc12.weight", (i, h), "dense"),
-                    (p + "mlp.fc2.weight", (h, i), "dense"),
-                    (p + "norm2.weight", (h,), "norm"), (p + "norm2.bias", (h,), "bias")]
-        return out
-    out += [("embeddings.position_embeddings.weight", (dims["positions"], h), "dense"),
-            ("embeddings.LayerNorm.weight", (h,), "norm"),
-            ("embeddings.LayerNorm.bias", (h,), "bias")]
-    for n in range(dims["layers"]):
-        p = f"encoder.layer.{n}."
-        for part in ("attention.self.query", "attention.self.key", "attention.self.value",
-                     "attention.output.dense"):
-            out += [(p + part + ".weight", (h, h), "dense"), (p + part + ".bias", (h,), "bias")]
-        out += [(p + "attention.output.LayerNorm.weight", (h,), "norm"),
-                (p + "attention.output.LayerNorm.bias", (h,), "bias"),
-                (p + "intermediate.dense.weight", (i, h), "dense"),
-                (p + "intermediate.dense.bias", (i,), "bias"),
-                (p + "output.dense.weight", (h, i), "dense"),
-                (p + "output.dense.bias", (h,), "bias"),
-                (p + "output.LayerNorm.weight", (h,), "norm"),
-                (p + "output.LayerNorm.bias", (h,), "bias")]
-    return out
+    return family(dims["family"]).tensor_specs(dims)
 
 
 def make_weights(dims: dict, seed: int, device) -> dict[str, torch.Tensor]:

@@ -1,11 +1,25 @@
 """What the benchmark finds by name: the cell's entry in ``BENCHMARK.json``,
-its configuration and traffic files, each per-layer metric's reader and the
-cell's limits. A configuration, a traffic mix, a per-layer metric or a
-cell's limits is added as a new file and a new entry; no file here changes.
+its configuration and traffic files, the configuration's encoder family,
+each per-layer metric's reader and the cell's limits. A configuration, an
+encoder family, a traffic mix, a per-layer metric or a cell's limits is
+added as a new file and a new entry; no file here changes.
 
 - ``configs`` entries name their file; the file holds the published
-  configuration (``config``), the registry model that serves it, and
-  ``assumed`` / ``reduced``.
+  configuration (``config``), its encoder ``family``, the registry model
+  that serves it, and ``assumed`` / ``reduced``.
+- ``bench_cells/families/<family>.py`` is one encoder family. It imports
+  only ``torch``, ``numpy`` and ``bench_cells`` and defines
+  ``dims(config_file)`` (the sizes under the names every family has,
+  ``family``, ``hidden``, ``layers``, ``heads``, ``intermediate``,
+  ``vocab``, ``positions``, ``eps``, ``pooling`` and ``type_vocab``, and
+  any of its own), ``tensor_specs(dims)`` (the checkpoint's tensors in the
+  order the seeded weights are drawn), ``matmul_params(dims)`` (the weights
+  of the matrix products, all layers), ``layer_windows(dims)`` (each
+  layer's attention window: 0 for full attention, w for the keys with
+  |i - j| <= w // 2), ``forward(enc, ids, mask)`` (its float32 reference
+  forward over ``reference.encoder.Encoder``'s pieces, pooled to [B,
+  hidden]) and ``served(dims)`` (the program's ``ArchConfig`` attributes
+  and the values the configuration requires of them).
 - ``bench_cells/traffic/<traffic>.json`` holds the mix's parameters and the
   ``driver`` (a module of ``bench_cells/drivers``) that runs it.
 - ``bench_cells/metrics/<metric name>.py`` defines ``read(trace) -> float |
@@ -20,6 +34,8 @@ import importlib
 import importlib.util
 import json
 from pathlib import Path
+
+from .families import family
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -39,19 +55,8 @@ def find(entries: list, name: str, what: str) -> dict:
 
 def model_dims(cfg: dict) -> dict:
     """The encoder's sizes from a configuration file's published ``config``,
-    under one set of names for either family."""
-    c = cfg["config"]
-    if cfg["family"] == "nomic":
-        return {"family": "nomic", "hidden": c["n_embd"], "layers": c["n_layer"],
-                "heads": c["n_head"], "intermediate": c["n_inner"],
-                "vocab": c["vocab_size"], "positions": c["n_positions"],
-                "eps": c["layer_norm_epsilon"], "rope_base": float(c["rotary_emb_base"]),
-                "type_vocab": c["type_vocab_size"], "pooling": cfg["pooling"]}
-    return {"family": "bert", "hidden": c["hidden_size"], "layers": c["num_hidden_layers"],
-            "heads": c["num_attention_heads"], "intermediate": c["intermediate_size"],
-            "vocab": c["vocab_size"], "positions": c["max_position_embeddings"],
-            "eps": c["layer_norm_eps"], "rope_base": 0.0,
-            "type_vocab": c["type_vocab_size"], "pooling": cfg["pooling"]}
+    under one set of names for every family (its module's ``dims``)."""
+    return family(cfg["family"]).dims(cfg)
 
 
 class Cell:

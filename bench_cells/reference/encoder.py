@@ -1,19 +1,10 @@
-"""Plain PyTorch forward passes of the two encoder families the benchmark's
-configurations name, written from their published descriptions and the
-Hugging Face checkpoint layout, in float32 with TF32 off:
-
-- BERT (BAAI/bge-small-en-v1.5): word + learned position + token-type 0
-  embeddings, LayerNorm; post-norm layers of biased Q, K, V projections,
-  softmax attention over the valid keys, output projection, residual and
-  LayerNorm, then an exact-GELU MLP, residual and LayerNorm; the [CLS]
-  state, L2-normalised.
-- NomicBERT (nomic-ai/nomic-embed-text-v1.5): word + token-type 0
-  embeddings, LayerNorm; post-norm layers of a bias-free fused QKV
-  projection, rotary position embedding (rotate-half, base
-  ``rotary_emb_base``, over the whole head), attention, bias-free output
-  projection, residual and LayerNorm, then the SwiGLU MLP
-  ``fc2(fc11(x) * silu(fc12(x)))``, residual and LayerNorm; the mean of the
-  valid states, L2-normalised.
+"""The plain PyTorch forward pass of every encoder family the benchmark's
+configurations name, in float32 with TF32 off. Each family's layers, written
+from its published description and the Hugging Face checkpoint layout, are
+its module's ``forward`` (``bench_cells/families/<family>.py``), built from
+the pieces here: projections, LayerNorm, softmax attention over the valid
+keys inside a layer's window, the rotate-half rotary embedding. The pooled
+state is L2-normalised here.
 
 ``quant`` exists for the control (a lower precision put in
 the program's place); the reference itself is float32. Nothing here
@@ -26,6 +17,8 @@ import contextlib
 
 import torch
 import torch.nn.functional as F
+
+from ..families import family
 
 FP8_MAX = 448.0
 
@@ -55,7 +48,7 @@ class Encoder:
 
     def __init__(self, dims: dict, weights: dict, device, quant: str | None = None):
         self.dims = dims
-        self.family = dims["family"]
+        self.family = family(dims["family"])
         self.device = device
         self.quant = quant
         self.w = {k: v.to(device=device, dtype=torch.float32) for k, v in weights.items()}
@@ -73,12 +66,33 @@ class Encoder:
         return F.layer_norm(x, (x.shape[-1],), self.w[name + ".weight"], self.w[name + ".bias"],
                             self.dims["eps"])
 
-    def _attend(self, q, k, v, mask):
-        """q, k, v [B, H, S, Dh]; mask [B, S] of 0/1."""
+    def _attend(self, q, k, v, mask, window: int = 0):
+        """q, k, v [B, H, S, Dh]; mask [B, S] of 0/1. A ``window`` w keeps
+        the keys with |i - j| <= w // 2; 0 keeps them all."""
         dh = q.shape[-1]
         s = (self._act(q) @ self._act(k).transpose(-1, -2)) / dh ** 0.5
-        s = s.masked_fill(mask[:, None, None, :] == 0, float("-inf"))
-        return self._act(torch.softmax(s, dim=-1)) @ self._act(v)
+        hide = mask[:, None, None, :] == 0
+        if window:
+            i = torch.arange(s.shape[-1], device=s.device)
+            hide = hide | ((i[:, None] - i[None, :]).abs() > window // 2)
+        p = torch.softmax(s.masked_fill(hide, float("-inf")), dim=-1)
+        if window:
+            # a padding row whose window holds no valid key: zeros, not NaN
+            # (a padding state is never pooled, but its NaN would reach the
+            # valid rows through the next layer's zero-weighted keys)
+            p = p.nan_to_num(0.0)
+        return self._act(p) @ self._act(v)
+
+    def _heads(self, t):
+        """[B, S, hidden] -> [B, H, S, Dh]."""
+        b, s, _ = t.shape
+        nh = self.dims["heads"]
+        return t.view(b, s, nh, self.dims["hidden"] // nh).transpose(1, 2)
+
+    def _merge(self, t):
+        """[B, H, S, Dh] -> [B, S, hidden]."""
+        b, _, s, _ = t.shape
+        return t.transpose(1, 2).reshape(b, s, self.dims["hidden"])
 
     def _rope(self, x, base):
         """Rotate-half rotary embedding over [B, H, S, Dh]."""
@@ -97,50 +111,7 @@ class Encoder:
             return self._encode(ids.to(self.device).long(), mask.to(self.device).float())
 
     def _encode(self, ids, mask):
-        dims = self.dims
-        b, s = ids.shape
-        h = dims["hidden"]
-        nh = dims["heads"]
-        dh = h // nh
-        w = self.w
-        x = w["embeddings.word_embeddings.weight"][ids]
-        x = x + w["embeddings.token_type_embeddings.weight"][0]
-
-        def heads(t):
-            return t.view(b, s, nh, dh).transpose(1, 2)
-
-        def merge(t):
-            return t.transpose(1, 2).reshape(b, s, h)
-
-        if self.family == "bert":
-            x = x + w["embeddings.position_embeddings.weight"][:s][None]
-            x = self._ln(x, "embeddings.LayerNorm")
-            for i in range(dims["layers"]):
-                p = f"encoder.layer.{i}."
-                q = heads(self._lin(x, p + "attention.self.query"))
-                k = heads(self._lin(x, p + "attention.self.key"))
-                v = heads(self._lin(x, p + "attention.self.value"))
-                a = self._lin(merge(self._attend(q, k, v, mask)), p + "attention.output.dense")
-                x = self._ln(x + a, p + "attention.output.LayerNorm")
-                m = F.gelu(self._lin(x, p + "intermediate.dense"))
-                x = self._ln(x + self._lin(m, p + "output.dense"), p + "output.LayerNorm")
-            pooled = x[:, 0]
-        else:
-            x = self._ln(x, "emb_ln")
-            base = dims["rope_base"]
-            for i in range(dims["layers"]):
-                p = f"encoder.layers.{i}."
-                qkv = self._lin(x, p + "attn.Wqkv", bias=False)
-                q, k, v = (heads(t) for t in qkv.split(h, dim=-1))
-                q, k = self._rope(q, base), self._rope(k, base)
-                a = self._lin(merge(self._attend(q, k, v, mask)), p + "attn.out_proj", bias=False)
-                x = self._ln(x + a, p + "norm1")
-                y = self._lin(x, p + "mlp.fc11", bias=False)
-                gate = self._lin(x, p + "mlp.fc12", bias=False)
-                x = self._ln(x + self._lin(y * F.silu(gate), p + "mlp.fc2", bias=False),
-                             p + "norm2")
-            pooled = (x * mask[:, :, None]).sum(1) / mask.sum(1, keepdim=True).clamp(min=1.0)
-        return F.normalize(pooled, dim=-1)
+        return F.normalize(self.family.forward(self, ids, mask), dim=-1)
 
 
 def pad_batch(rows: list[list[int]]) -> tuple[torch.Tensor, torch.Tensor]:

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .families import family
+
 # NVIDIA H100 SXM, dense rates (NVIDIA's data sheet), at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -20,13 +22,9 @@ def bound_s(nbytes: float, ops: float, kind: str = "bf16") -> float:
 
 
 def matmul_params(dims: dict) -> int:
-    """Weights of the encoder's matrix products, all layers."""
-    h, i = dims["hidden"], dims["intermediate"]
-    if dims["family"] == "nomic":        # fused QKV, output, fc11 + fc12, fc2
-        per_layer = 3 * h * h + h * h + 2 * h * i + i * h
-    else:                                # Q, K, V, output, MLP in and out
-        per_layer = 4 * h * h + 2 * h * i
-    return per_layer * dims["layers"]
+    """Weights of the encoder's matrix products, all layers (the family
+    module's ``matmul_params``)."""
+    return family(dims["family"]).matmul_params(dims)
 
 
 def weight_bytes(dims: dict) -> int:
@@ -35,25 +33,47 @@ def weight_bytes(dims: dict) -> int:
     return 2 * matmul_params(dims)
 
 
+def window_pairs(lengths, window: int) -> np.ndarray:
+    """Query-key pairs a layer's attention scores in each text of
+    ``lengths`` real tokens: all L^2 of them in a full layer (``window``
+    0), those with |i - j| <= window // 2 in a windowed one."""
+    n = np.asarray(lengths, np.float64)
+    if not window:
+        return n * n
+    r = np.minimum(window // 2, np.maximum(n - 1, 0))
+    return n * (2 * r + 1) - r * (r + 1)
+
+
+def _attention_pairs(dims: dict, lengths, windowed: bool | None) -> tuple[int, float]:
+    """(layers, query-key pairs summed over them) of the layers chosen by
+    ``windowed``: every layer (None), the full ones (False) or the windowed
+    ones (True), each over its own window."""
+    windows = [w for w in family(dims["family"]).layer_windows(dims)
+               if windowed is None or bool(w) == windowed]
+    return len(windows), float(sum(window_pairs(lengths, w).sum() for w in windows))
+
+
 def encoder_flops(dims: dict, lengths) -> float:
     """Model operations of the encoder over texts of ``lengths`` real
     tokens: 2 per matrix-product weight a token, and the attention's two
-    products over the valid keys (4 x L^2 x hidden a layer)."""
+    products over the valid keys inside each layer's window (4 x hidden a
+    query-key pair)."""
     n = np.asarray(lengths, np.float64)
-    return float(2.0 * matmul_params(dims) * n.sum()
-                 + 4.0 * dims["layers"] * dims["hidden"] * (n * n).sum())
+    _layers, pairs = _attention_pairs(dims, lengths, None)
+    return float(2.0 * matmul_params(dims) * n.sum() + 4.0 * dims["hidden"] * pairs)
 
 
-def attention_work(dims: dict, lengths) -> tuple[float, float]:
-    """(bytes, operations) of the attention kernel over every layer for
-    texts of ``lengths`` real tokens: q read and o written, K and V read
-    (bf16) for the valid keys, the f32 mask read; QK^T and PV over the valid
-    keys of each valid query row."""
+def attention_work(dims: dict, lengths, windowed: bool | None = None) -> tuple[float, float]:
+    """(bytes, operations) of the attention over the layers ``windowed``
+    chooses (every layer for None, the full layers for False, the windowed
+    ones for True) for texts of ``lengths`` real tokens: q read and o
+    written, K and V read (bf16) for the valid keys, the f32 mask read;
+    QK^T and PV over the valid keys inside the layer's window of each valid
+    query row."""
     n = np.asarray(lengths, np.float64)
-    h, layers = dims["hidden"], dims["layers"]
-    nbytes = layers * (4 * 2 * h * n.sum() + 4 * n.sum())
-    ops = layers * 4.0 * h * (n * n).sum()
-    return float(nbytes), float(ops)
+    layers, pairs = _attention_pairs(dims, lengths, windowed)
+    nbytes = layers * (4 * 2 * dims["hidden"] * n.sum() + 4 * n.sum())
+    return float(nbytes), 4.0 * dims["hidden"] * pairs
 
 
 def score_pass_work(rows: int, d: int, queries: int, k: int) -> tuple[float, float]:

@@ -89,8 +89,35 @@ def test_index_readers():
         100 * bound_s(nb, ops) / 2e-3)
 
 
-def test_readers_find_nothing_in_the_other_kind_of_trace():
-    """A reader with nothing to read returns None, never 0."""
+def _agg(total, self_s=None, count=1, **counts):
+    return {"count": count, "total_s": total, "self_s": total if self_s is None else self_s,
+            "counts": counts}
+
+
+# what the program's tracing module holds after a traced run of each cell
+PROGRAM_SPANS = {"spans": {
+    "cs.readplane.query": _agg(0.080, count=4),
+    "cs.readplane.featurize": _agg(0.012, count=4, tokens=60, padded=20),
+    "cs.fts.plan": _agg(0.008, count=4),
+    "cs.store.dispatch": _agg(0.030, 0.020, count=4),
+    "cs.device.readback": _agg(0.004, count=4),
+    "cs.readplane.unpack": _agg(0.006, count=8),
+    "cs.rank.materialize": _agg(0.010, count=4),
+    "cs.index.open": _agg(0.5),
+    "cs.index.walk": _agg(0.2),
+    "cs.index.diff": _agg(0.1, count=2),
+    "cs.index.chunk": _agg(0.4),
+    "cs.embed.tokenize": _agg(1.0),
+}, "counters": {"encoder.graph_replays": 9, "encoder.graph_captures": 1}}
+
+
+def test_readers_find_nothing_in_the_other_kind_of_trace(monkeypatch):
+    """A reader with nothing to read returns None, never 0: the program's
+    spans and counters are there for every reader, and the cell's trace
+    decides."""
+    from codesearch_tpu_torch.utils import tracing
+
+    monkeypatch.setattr(tracing, "snapshot", lambda: PROGRAM_SPANS)
     bench = load_benchmark(ROOT)
     q, i = _query_trace(), _index_trace()
     for m in bench["per_layer"]:
