@@ -29,9 +29,14 @@ when any phase fails:
    S, the d/e route at its threshold, the encoder's layout (strided views of
    one fused QKV projection) at S in {64, 512}, with padded masks, masks with
    holes (zeros before a row's last valid key) and a fully masked row, d
-   timed on ragged and on full masks; window (ModernBERT's 128 at H=16,
-   Dh=64) and bias2d (ALiBi) taking the composed route, counted apart and
-   launching no kernel, equal to the CPU's ``reference_attention``;
+   timed on ragged and on full masks; the windowed kernel (ModernBERT's
+   local layers: window 128 at H=16, Dh=64, B=64, S in {128, 256, 512}, and
+   narrower windows, holes, full masks, strided views, S of 1,000 and
+   4,096) against its plain twin on every row and ``reference_attention``
+   on the valid ones, timed against the composed route and d; a window
+   under autograd and bias2d (ALiBi) taking the composed route, counted
+   apart and launching no kernel, equal to the CPU's
+   ``reference_attention``;
    unsupported inputs raising; the autograd route (inputs that require
    grad: d or e forward, ``reference_attention`` recomputed backward) at the
    training shapes (d at B=64, H=12, S=128 and B=96, H=6, S=256; e at B=8,
@@ -89,15 +94,13 @@ when any phase fails:
    at least once a layer of every batch and query); modernbert-large at
    full width with its depth cut to 6 layers (global layers 0 and 3), a
    forward of 256 chunks against the CPU's (d exactly twice and the
-   windowed route four times a forward), an 8,192-chunk index and hybrid
-   queries, and a local layer's composed attention timed against d at
-   B=256, S=128 and 512; ``search --rerank`` (8 queries, the default 100
+   windowed kernel four times a forward), an 8,192-chunk index and hybrid
+   queries; ``search --rerank`` (8 queries, the default 100
    candidates) on phase 5's index through a GPU and a CPU session with the
    weights-free proxy, a cross-encoder checkpoint with absolute positions
    (d six times a query) and an ALiBi one (the biased route six times, no
    d), written by the script from seed 0. ``reference_attention`` may run
-   on the card only as the windowed and biased route, as often as that
-   route counts;
+   on the card only as the biased route, as often as that route counts;
 11. training on the card: ``codesearch-torch train`` (in this process) on
    phase 4's index, 3 epochs, against ``--platform cpu`` on a copy (losses
    within 1e-3, the trained tables' bf16 entries equal in 99% of the
@@ -221,6 +224,7 @@ SOURCES = {
     "attention_full": _ATTN_CU,
     "attention_flash": _ATTN_CU,
     "attention_packed": _ATTN_CU,
+    "attention_window": _ATTN_CU,
 }
 REPLACES = {
     "fused_cosine_topk": "codesearch_tpu/ops/pallas_topk.py:244",
@@ -229,15 +233,18 @@ REPLACES = {
     "attention_full": "codesearch_tpu/ops/attention.py:110",
     "attention_flash": "codesearch_tpu/ops/attention.py:140",
     "attention_packed": "examples/ablate_head_packing.py:88",
+    # no Pallas kernel: the XLA composition reference_attention(window=w)
+    "attention_window": "codesearch_tpu/ops/attention.py:24",
 }
 # the kernels' plain versions: none may run on the card's main path (the
 # head-packing ablation computes reference_attention as its reference row;
-# phase 10's windowed and ALiBi layers run it as their composed route)
+# phase 10's ALiBi layers run it as their composed route)
 PLAIN_VERSIONS = {
     "codesearch_tpu_torch.ops.fused_topk": (
         "fused_cosine_topk_plain", "fused_cosine_topk_int8_plain", "fused_scores_topk_plain"),
     "codesearch_tpu_torch.ops.attention": (
-        "attention_full_plain", "attention_flash_plain", "reference_attention"),
+        "attention_full_plain", "attention_flash_plain", "attention_window_plain",
+        "reference_attention"),
     "codesearch_tpu_torch.ops.packed_attention": ("attention_packed_plain",),
 }
 # published H100 SXM peaks (dense): the bound of a kernel is the larger of
@@ -714,6 +721,7 @@ def attention_checks(device: str) -> dict:
         del q, k, v, mask, got, ref
         torch.cuda.empty_cache()
 
+    out["attention_window"] = window_checks(device)
     composed_checks(device)
     # what the kernels do not take raises on the card and launches nothing
     q, k, v, mask = attention_inputs(2, 12, 64, 32, seed=99, device=device)
@@ -837,13 +845,113 @@ def attention_grad_checks(device: str) -> dict:
     return out
 
 
+def window_bound(q, mask, window: int) -> dict:
+    """``attention_bound`` over a band: q read and o written in full, K and
+    V read once for the keys that count, the f32 mask read; QK^T and PV
+    only for each valid query row's valid keys with |i - j| <= window // 2."""
+    import torch
+
+    b, h, s, dh = q.shape
+    lens = mask.sum(dim=1)
+    keys = float((lens + (lens == 0) * s).sum())
+    i = torch.arange(s, device=mask.device)
+    band = ((i[:, None] - i[None, :]).abs() <= window // 2).float()
+    pairs = float(torch.einsum("bi,ij,bj->", mask.float(), band, mask.float()))
+    return bound(2 * b * h * s * dh * 2 + 2 * h * keys * dh * 2 + b * s * 4,
+                 4 * h * pairs * dh, "bf16")
+
+
+# (B, H, S, Dh, window, timed, fused_qkv, masks): ModernBERT's local layers
+# (H=16, Dh=64, window 128) at its index batch of 64 over the buckets 128, 256
+# and 512 (timed: the composed route, the kernel and d without a window), the
+# encoder's strided views, masks with holes and full masks, bge-small's heads
+# at two narrow windows, S past d's bound and a long S (its plain twin alone:
+# the reference's scores would not fit beside it)
+WINDOW_CASES = [(64, 16, 128, 64, 128, True, False, "ragged"),
+                (64, 16, 256, 64, 128, True, False, "ragged"),
+                (64, 16, 512, 64, 128, True, False, "ragged"),
+                (64, 16, 512, 64, 128, False, True, "ragged"),
+                (64, 16, 512, 64, 128, False, False, "holes"),
+                (64, 16, 512, 64, 128, False, False, "full"),
+                (256, 12, 512, 32, 16, False, False, "ragged"),
+                (32, 12, 200, 32, 8, False, True, "holes"),
+                (4, 16, 1000, 64, 128, False, False, "ragged"),
+                (2, 16, 4096, 64, 128, False, False, "ragged")]
+
+
+def window_checks(device: str) -> dict:
+    """The windowed kernel against its plain twin on every row and against
+    ``reference_attention(window=w)`` on the valid rows (bf16, one launch a
+    call, every output finite; the reference up to S=2048), and at
+    ModernBERT's local layers (B=64, H=16, Dh=64, window 128) its time
+    against the composed route and kernel d without a window (CUDA events,
+    plain-kernel-kernel-plain, and device ms of a replayed CUDA graph),
+    beside its bound. Returns the row at S=512."""
+    import torch
+
+    from codesearch_tpu_torch.examples.ablate_head_packing import cuda_ms
+    from codesearch_tpu_torch.ops import attention as att
+
+    out: dict = {}
+    for i, (b, h, s, dh, w, timed, fused_qkv, masks) in enumerate(WINDOW_CASES):
+        q, k, v, mask = attention_inputs(b, h, s, dh, seed=100 + i, device=device,
+                                         fused_qkv=fused_qkv, masks=masks)
+        before = att.launch_counts["attention_window"]
+        got = att.attention_window(q, k, v, mask, w)
+        torch.cuda.synchronize()
+        check(att.launch_counts["attention_window"] == before + 1,
+              f"attention_window did not launch once at B={b} S={s}")
+        twin = att.attention_window_plain(q.contiguous(), k.contiguous(), v.contiguous(), mask, w)
+        err, share, ok = compare_attention(got, twin)
+        finite = bool(torch.isfinite(got).all())
+        ref_err, ref_ok = None, True
+        if s <= 2048:
+            ref = att.reference_attention(q, k, v, mask, window=w)
+            valid = mask.bool()[:, None, :, None].expand_as(got)
+            ref_err, _, ref_ok = compare_attention(got[valid], ref[valid])
+            del ref
+        layout = "views of a fused QKV projection" if fused_qkv else "contiguous"
+        log(f"windowed kernel B={b} H={h} S={s} Dh={dh} window={w} ({layout}, {masks} masks): "
+            f"max |out - plain| {err}, share differing {share:.2e}; max |out - "
+            f"reference_attention| on valid rows {ref_err} (tol {ATTN_ATOL} + {ATTN_RTOL}|ref|); "
+            f"all finite {finite}")
+        check(ok and ref_ok and finite, f"the windowed kernel disagrees at B={b} S={s} Dh={dh} "
+              f"window={w} ({layout}, {masks} masks)")
+        if timed:
+            def composed():
+                return att.reference_attention(q, k, v, mask, window=w)
+
+            def kernel():
+                return att.attention_window(q, k, v, mask, w)
+
+            def d():
+                return att.attention_full(q, k, v, mask)
+
+            t_c1, t_k1 = cuda_ms(composed, reps=5), cuda_ms(kernel, reps=10)
+            t_k2, t_c2 = cuda_ms(kernel, reps=10), cuda_ms(composed, reps=5)
+            row = {"ms": min(t_k1, t_k2), "composed_ms": min(t_c1, t_c2),
+                   "d_ms": cuda_ms(d, reps=10), **window_bound(q, mask, w),
+                   "device_ms": device_ms(kernel), "composed_device_ms": device_ms(composed, 3),
+                   "d_device_ms": device_ms(d), "max_abs_err": err}
+            log(f"time ModernBERT local layer B={b} H={h} S={s} Dh={dh} window={w} ({masks} "
+                f"masks): windowed kernel {t_k1}/{t_k2} ms (device {row['device_ms']}), composed "
+                f"route {t_c1}/{t_c2} ms (device {row['composed_device_ms']}), kernel d without "
+                f"a window {row['d_ms']} ms (device {row['d_device_ms']}); bound "
+                f"{row['bound_ms']} ms ({row['bound_by']})")
+            out[s] = row
+        del q, k, v, mask, got, twin
+        torch.cuda.empty_cache()
+    return {**out[512], "by_seq": out}
+
+
 def composed_checks(device: str) -> None:
-    """Windowed and ALiBi attention take the composed route on the card
-    (``reference_attention``, as JAX composes them in XLA on every backend):
-    ModernBERT's window of 128 at its heads (H=16, Dh=64, S=512) and an
-    ALiBi bias at bge-small's (H=12, Dh=32, S=256) each count once in
-    ``composed_counts``, launch no kernel and equal the CPU's
-    ``reference_attention`` on the same inputs within one bf16 step."""
+    """Biased attention, and windowed attention under autograd, take the
+    composed route on the card (``reference_attention``, as JAX composes
+    them in XLA on every backend): ModernBERT's window of 128 at its heads
+    (H=16, Dh=64, S=512) with q requiring grad and an ALiBi bias at
+    bge-small's (H=12, Dh=32, S=256) each count once in ``composed_counts``,
+    launch no kernel and equal the CPU's ``reference_attention`` on the same
+    inputs within one bf16 step."""
     import torch
 
     from codesearch_tpu_torch.ops import attention as att
@@ -852,7 +960,8 @@ def composed_checks(device: str) -> None:
         q, k, v, mask = attention_inputs(b, h, s, dh, seed=77, device=device)
         kw = {"window": 128} if what == "window" else {"bias2d": att.alibi_bias(h, s, device)}
         launches, composed = dict(att.launch_counts), dict(att.composed_counts)
-        got = att.fused_encoder_attention(q, k, v, mask, **kw)
+        grad_q = q.clone().requires_grad_(what == "window")
+        got = att.fused_encoder_attention(grad_q, k, v, mask, **kw).detach()
         torch.cuda.synchronize()
         check(att.launch_counts == launches, f"attention with {what} launched a kernel")
         check(att.composed_counts[what] == composed[what] + 1,
@@ -860,9 +969,10 @@ def composed_checks(device: str) -> None:
         cpu_kw = {"window": 128} if what == "window" else {"bias2d": kw["bias2d"].cpu()}
         ref = att.reference_attention(q.cpu(), k.cpu(), v.cpu(), mask.cpu(), **cpu_kw)
         err, share, ok = compare_attention(got.cpu(), ref)
-        log(f"attention with {what} on the card: the composed route, no kernel launched, "
-            f"max |out - CPU reference| {err} (tol {ATTN_ATOL} + {ATTN_RTOL}|ref|), share of "
-            f"outputs differing {share:.2e} (B={b} H={h} S={s} Dh={dh})")
+        log(f"attention with {what}{' under autograd' if what == 'window' else ''} on the card: "
+            f"the composed route, no kernel launched, max |out - CPU reference| {err} (tol "
+            f"{ATTN_ATOL} + {ATTN_RTOL}|ref|), share of outputs differing {share:.2e} (B={b} H={h} "
+            f"S={s} Dh={dh})")
         check(ok and bool(torch.isfinite(got).all()),
               f"attention with {what} on the card disagrees with the CPU reference")
 
@@ -2024,55 +2134,13 @@ def nomic_synthetic(work: Path, n_rows: int, device: str) -> dict:
     return out
 
 
-def composed_against_kernel_d(device: str) -> dict:
-    """A ModernBERT local layer's composed windowed attention (window 128,
-    H=16, Dh=64, B=256, ragged masks) at S=128 and 512 against kernel d on
-    the same inputs without a window: CUDA events (median of 5), device ms
-    (a replayed CUDA graph), the [B, H, S, S] f32 scores' size and the
-    route's peak memory."""
-    import torch
-
-    from codesearch_tpu_torch.examples.ablate_head_packing import cuda_ms
-    from codesearch_tpu_torch.ops import attention as att
-
-    out = {}
-    for s in (128, 512):
-        q, k, v, mask = attention_inputs(256, 16, s, 64, seed=s, device=device)
-
-        def composed():
-            return att.fused_encoder_attention(q, k, v, mask, window=128)
-
-        def kernel():
-            return att.attention_full(q, k, v, mask)
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        composed()
-        torch.cuda.synchronize()
-        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-        row = {"composed_ms": cuda_ms(composed, reps=5), "d_ms": cuda_ms(kernel, reps=5),
-               "composed_device_ms": device_ms(composed, calls=3),
-               "d_device_ms": device_ms(kernel, calls=3),
-               "scores_mb": 256 * 16 * s * s * 4 / 2**20, "composed_peak_mb": peak,
-               "d_bound": attention_bound(q, mask)}
-        log(f"ModernBERT local layer attention B=256 H=16 S={s} Dh=64 (ragged masks): composed "
-            f"window=128 {row['composed_ms']} ms (device {row['composed_device_ms']}), kernel d "
-            f"without a window {row['d_ms']} ms (device {row['d_device_ms']}); scores "
-            f"{row['scores_mb']:.0f} MB, the composed route's peak {peak:.0f} MB")
-        out[s] = row
-        del q, k, v, mask
-        torch.cuda.empty_cache()
-    return out
-
-
 def modernbert_synthetic(work: Path, device: str, n_rows: int, batch: int) -> dict:
     """modernbert-large at full width, depth cut to ``MODERNBERT_LAYERS``
     (the registry's entry is swapped for the phase): a batch of ``batch``
     chunks through the GPU encoder against the CPU forward (cosine per row,
-    d exactly once a global layer and the windowed route once a local layer
-    a forward, ``reference_attention`` only for the latter), then an index
-    of ``n_rows`` chunks and hybrid queries with the same counts per
+    d exactly once a global layer and the windowed kernel once a local layer
+    a forward, no plain version and no composed route), then an index of
+    ``n_rows`` chunks and hybrid queries with the same counts per
     forward."""
     import dataclasses
 
@@ -2117,12 +2185,11 @@ def modernbert_synthetic(work: Path, device: str, n_rows: int, batch: int) -> di
               f"the {MODERNBERT_MODEL} GPU forward differs from the CPU one")
         del cpu
         if device == "cuda":
-            check(fwd["attention_full"] == n_global and fwd["composed_window"] == n_local
-                  and fwd["composed_bias2d"] == 0,
+            check(fwd["attention_full"] == n_global and fwd["attention_window"] == n_local
+                  and fwd["composed_window"] == 0 and fwd["composed_bias2d"] == 0,
                   f"a {MODERNBERT_MODEL} forward ran d {fwd['attention_full']} times and the "
-                  f"windowed route {fwd['composed_window']} times")
-            check(fwd_plain == {"reference_attention": n_local},
-                  f"plain versions in a {MODERNBERT_MODEL} forward: {fwd_plain}")
+                  f"windowed kernel {fwd['attention_window']} times")
+            check(not fwd_plain, f"plain versions in a {MODERNBERT_MODEL} forward: {fwd_plain}")
 
         db = work / "modernbert-synthetic-db"
         with PlainCalls() as plain:
@@ -2151,14 +2218,13 @@ def modernbert_synthetic(work: Path, device: str, n_rows: int, batch: int) -> di
             forwards = -(-n_rows // _default_batch_size(spec.dims))
             for what, c, pc, n in (("index", idx, idx_plain, forwards),
                                    ("queries", qc, q_plain, len(set(HYBRID_QUERIES[:4])))):
-                check(c["attention_full"] == n_global * n and c["composed_window"] == n_local * n,
+                check(c["attention_full"] == n_global * n
+                      and c["attention_window"] == n_local * n and c["composed_window"] == 0,
                       f"{MODERNBERT_MODEL} {what}: d {c['attention_full']} and the windowed "
-                      f"route {c['composed_window']} times for {n} forwards")
-                check(pc == {"reference_attention": n_local * n},
-                      f"plain versions in {MODERNBERT_MODEL} {what}: {pc}")
+                      f"kernel {c['attention_window']} times for {n} forwards")
+                check(not pc, f"plain versions in {MODERNBERT_MODEL} {what}: {pc}")
             check(qc["fused_cosine_topk"] >= len(set(HYBRID_QUERIES[:4])),
                   "fused_cosine_topk did not run for every ModernBERT query")
-            out["composed_vs_d"] = composed_against_kernel_d(device)
         del session, svc
         if device == "cuda":
             torch.cuda.empty_cache()
@@ -3743,7 +3809,7 @@ def main() -> int:
                  **train_mesh["launches"]}
         for name, via in (("fused_cosine_topk", "search"), ("fused_cosine_topk_int8", "search"),
                           ("fused_scores_topk", "search"), ("attention_full", "search"),
-                          ("attention_flash", "direct")):
+                          ("attention_flash", "direct"), ("attention_window", "modernbert")):
             by_path = {path: c[name] for path, c in paths.items() if c[name]}
             kernels.append({"name": name, "route": "cuda", "via": via, "source": SOURCES[name],
                             "replaces": REPLACES[name], "launches": sum(by_path.values()),

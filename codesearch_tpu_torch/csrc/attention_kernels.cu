@@ -6,13 +6,16 @@
 //   cs_attention_flash  <- pallas_attention (same file, _flash_kernel)    kernel e
 //   cs_attention_packed <- packed_attention (examples/ablate_head_packing.py,
 //                          _packed_kernel)                              kernel f
+// and adds a fourth that replaces an XLA composition, not a Pallas kernel:
+//   cs_attention_window <- reference_attention(window=w) (same file)     windowed d
 // All compute non-causal attention over a [B, H, S, Dh] bf16 batch with a
 // [B, S] padding mask added to the scores as (1 - m) * -1e30 (never -inf, so
 // a fully masked row stays finite: it averages V). Dh is 32 or 64 for d and
 // e, 32 for f. Q, K, V and O may be strided views (last dimension
 // contiguous, other strides multiples of 8 elements), so the encoder hands
 // over its fused QKV projection without copies and takes O in [B, S, H, Dh]
-// order. Query rows past S are computed on zeros and not stored.
+// order. Query rows past S are computed on zeros and not stored. The
+// windowed kernel takes what d takes and a window.
 //
 // What bounds them on an H100: per (batch, head) the score matrix is S x S,
 // 2*S*S*Dh flops each for QK^T and PV, against 3*S*Dh*2 bytes of Q, K, V.
@@ -111,6 +114,34 @@
 //   142 and 3 CTAs at Dh=64. W = 8 is within 3% at Dh=32, where it spills,
 //   and 6% slower at Dh=64, where one CTA fits an SM.
 //
+// cs_attention_window (attention_window_band<DH, W>): sliding-window
+//   attention, each query row i over the keys j with |i - j| <= window / 2
+//   (ModernBERT's local layers). It replaces no Pallas kernel: the JAX
+//   package composes windowed attention in XLA (reference_attention with a
+//   window), and so did the port, at [B, H, S, S] f32 scores a layer. What
+//   bounds it is bytes: at a window of 128 a query row scores at most 129
+//   keys, so per (batch, head) the work is about 2 * 129 * S * Dh flops a
+//   product against the same 3 * S * Dh * 2 bytes as d. It keeps d's
+//   numerics and pieces (two exact sweeps, p rounded to bf16 before p @ V,
+//   the f32 sum divided after; load_q, copy_tile, score_tile_ldm, store_o),
+//   and differs in what it visits:
+//   - A CTA owns one (batch row, head) and W * 16 query rows [q_lo, q_hi)
+//     and streams only the 64-key tiles that meet [q_lo - w/2, q_hi - 1 +
+//     w/2], clipped at n_keys (1 + the row's last valid key, S for a fully
+//     masked row), through d's double-buffered ring (at w = 128: three
+//     tiles, K and V read once each but the first). The mask bias of those
+//     tiles' keys sits in shared memory, as d's does for the whole row.
+//   - Each warp takes its 16 rows against 16 keys at a time: a block wholly
+//     outside the band of every row is skipped (both products), one wholly
+//     inside runs as d's, and an edge block sets the scores outside the band
+//     to -inf (sweep 1) and their p to 0 (sweep 2). The tests are
+//     warp-uniform: ldmatrix and mma need the whole warp.
+//   - A row whose band holds no valid key (a padding row far past the last
+//     valid one) keeps a max of at most a masked key's bias; its output is
+//     written as 0 (acc / inf), never 0 / 0: the next layer weights that
+//     padding key by 0, and 0 * NaN would be NaN.
+//   W = 4, as d.
+//
 // Every kernel launches on the caller's stream and allocates nothing; every
 // entry point returns the CUDA error of its launch (0 on success, -1 for a
 // bad argument).
@@ -134,7 +165,11 @@ constexpr int kFullWarps = 4;
 constexpr int kPackedWarpsP2 = 4;
 constexpr int kPackedWarpsP4 = 8;
 constexpr int kFlashWarps = 4;
+constexpr int kWindowWarps = 4;
 constexpr int kPackedDh = 32;
+// a row max below this (log2 domain) saw no valid key: valid scores are
+// finite and small, a masked key's bias is -1e30 * log2(e)
+constexpr float kNoValidKey = -1.0e29f;
 constexpr int kErrBadArg = -1;
 
 // Element strides of the [B, H, S, Dh] views (the Dh stride is 1).
@@ -627,6 +662,204 @@ attention_flash(const bf16* __restrict__ q, const bf16* __restrict__ k,
               fmaxf(row_sum4(la), 1e-30f), fmaxf(row_sum4(lb), 1e-30f));
 }
 
+// ---- the windowed kernel: d's two sweeps over the band of keys -------------
+// 64-key tiles an interval of W * 16 query rows widened by `half` on either
+// side may touch, at most all of S's: the band's bias in shared memory.
+__host__ __device__ __forceinline__ int band_tiles(int S, int rows, int half) {
+  const int span = rows + 2 * half;
+  const int touched = (span + kKeys - 2) / kKeys + 1;
+  const int all = keys_padded(S) / kKeys;
+  return touched < all ? touched : all;
+}
+
+template <int DH>
+size_t window_smem(int S, int rows, int half) {
+  return (size_t)4 * kKeys * (DH + kPad) * sizeof(bf16) +
+         (size_t)band_tiles(S, rows, half) * kKeys * sizeof(float);
+}
+
+// Where 16 keys from kb lie against the band |j - i| <= half of the warp's
+// 16 rows from row0: 0 outside every row's band, 1 inside every row's, 2 on
+// its edge (warp-uniform).
+__device__ __forceinline__ int band_block(int kb, int row0, int half) {
+  const int lo = kb - (row0 + 15), hi = kb + 15 - row0;  // the block's range of j - i
+  if (hi < -half || lo > half) return 0;
+  return (lo >= -half && hi <= half) ? 1 : 2;
+}
+
+// Whether key j lies in row i's band.
+__device__ __forceinline__ bool in_band(int j, int i, int half) {
+  return abs(j - i) <= half;
+}
+
+template <int DH, int W>
+__global__ void __launch_bounds__(W * 32)
+attention_window_band(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const float* __restrict__ mask,
+                      bf16* __restrict__ o, Layout L, int H, int S, int n_qblocks, int half,
+                      float scale_log2) {
+  constexpr int NT = W * 32;
+  constexpr int kTile = kKeys * (DH + kPad);  // bf16 of one K (or V) buffer
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* kbuf = reinterpret_cast<bf16*>(smem);                // [2][kKeys][DH + kPad]
+  bf16* vbuf = kbuf + 2 * kTile;                             // [2][kKeys][DH + kPad]
+  float* bias = reinterpret_cast<float*>(vbuf + 2 * kTile);  // [the band's tiles][kKeys]
+  __shared__ int last_of_warp[W];
+  const int qb = blockIdx.x % n_qblocks, bh = blockIdx.x / n_qblocks;
+  const int b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q_lo = qb * (W * 16);
+  const int row0 = q_lo + warp * 16;
+  const int ra = row0 + g, rb = row0 + g + 8;
+  const bool active = row0 < S;  // warp-uniform; idle warps still copy and join barriers
+  const bf16* kg = k + b * L.kb + h * L.kh;
+  const bf16* vg = v + b * L.vb + h * L.vh;
+  const float* mrow = mask + (size_t)b * S;
+
+  uint32_t qa[DH / 16][4];
+  load_q<DH>(q + b * L.qb + h * L.qh, L.qs, row0, S, g, t, qa);
+
+  // the keys that count: up to the row's last valid one, all S if it has none
+  int last = -1;
+  for (int j = threadIdx.x; j < S; j += NT)
+    if (mrow[j] != 0.0f) last = j;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
+  if (lane == 0) last_of_warp[warp] = last;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < W; ++w) last = max(last, last_of_warp[w]);
+  const int n_keys = last < 0 ? S : last + 1;
+  // the CTA's band [k_lo, k_hi), clipped at n_keys, as tiles t0 .. t0 + n_tiles - 1
+  const int q_hi = min(S, q_lo + W * 16);
+  const int k_lo = max(0, q_lo - half);
+  const int k_hi = min(n_keys, q_hi + half);
+  const int t0 = k_lo / kKeys;
+  const int n_tiles = k_hi > k_lo ? (k_hi + kKeys - 1) / kKeys - t0 : 0;
+  // the bias of the band's keys in the log2 domain, -inf past S (read after
+  // the first barrier of sweep 1)
+  for (int j = threadIdx.x; j < n_tiles * kKeys; j += NT) {
+    const int key = t0 * kKeys + j;
+    bias[j] = key < S ? __fmul_rn(mask_bias(mrow[key]), kLog2e) : -INFINITY;
+  }
+
+  // d's ring: tile i of the band in buffer i & 1, sweep 1 also loads V of
+  // the last two tiles, sweep 2 walks back from them
+  if (n_tiles > 0)
+    copy_tile<DH, 1, NT>(kg, vg, L, t0 * kKeys, n_keys, kbuf, vbuf, n_tiles <= 2);
+  cp_async_commit();
+
+  // sweep 1: per thread, the max of its in-band scores (log2 domain)
+  float ma = -FLT_MAX, mb = -FLT_MAX;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1;
+    if (tile + 1 < n_tiles)
+      copy_tile<DH, 1, NT>(kg, vg, L, (t0 + tile + 1) * kKeys, n_keys, kbuf + (buf ^ 1) * kTile,
+                           vbuf + (buf ^ 1) * kTile, tile + 1 >= n_tiles - 2);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (active) {
+      const float* bs = bias + tile * kKeys;
+      const bf16* ks = kbuf + buf * kTile;
+      const int key0 = (t0 + tile) * kKeys;
+#pragma unroll
+      for (int kc = 0; kc < kKeys; kc += 16) {
+        const int where = band_block(key0 + kc, row0, half);
+        if (where == 0) continue;
+#pragma unroll
+        for (int half8 = 0; half8 < 2; ++half8) {
+          float x[4];
+          score_tile_ldm<DH>(qa, ks, kc + 8 * half8, lane, x);
+          const float2 bj = *reinterpret_cast<const float2*>(bs + kc + 8 * half8 + 2 * t);
+          x[0] = fmaf(x[0], scale_log2, bj.x);
+          x[1] = fmaf(x[1], scale_log2, bj.y);
+          x[2] = fmaf(x[2], scale_log2, bj.x);
+          x[3] = fmaf(x[3], scale_log2, bj.y);
+          if (where == 2) {
+            const int j = key0 + kc + 8 * half8 + 2 * t;
+            if (!in_band(j, ra, half)) x[0] = -INFINITY;
+            if (!in_band(j + 1, ra, half)) x[1] = -INFINITY;
+            if (!in_band(j, rb, half)) x[2] = -INFINITY;
+            if (!in_band(j + 1, rb, half)) x[3] = -INFINITY;
+          }
+          ma = fmaxf(ma, fmaxf(x[0], x[1]));
+          mb = fmaxf(mb, fmaxf(x[2], x[3]));
+        }
+      }
+    }
+    __syncthreads();  // this buffer is consumed before the next copy into it
+  }
+  ma = row_max4(ma);
+  mb = row_max4(mb);
+
+  // sweep 2, last tile first: p = 2^(x - max) in the band, rounded to bf16,
+  // p @ V and the sum of p in f32
+  float sa = 0.0f, sb = 0.0f;
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  for (int tile = n_tiles - 1; tile >= 0; --tile) {
+    const int buf = tile & 1;
+    if (tile >= 1 && tile - 1 < n_tiles - 2)  // not resident from sweep 1
+      copy_tile<DH, 1, NT>(kg, vg, L, (t0 + tile - 1) * kKeys, n_keys, kbuf + (buf ^ 1) * kTile,
+                           vbuf + (buf ^ 1) * kTile, true);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (active) {
+      const float* bs = bias + tile * kKeys;
+      const bf16* ks = kbuf + buf * kTile;
+      const bf16* vs = vbuf + buf * kTile;
+      const int key0 = (t0 + tile) * kKeys;
+#pragma unroll
+      for (int kc = 0; kc < kKeys; kc += 16) {
+        const int where = band_block(key0 + kc, row0, half);
+        if (where == 0) continue;
+        float pr[2][4];
+#pragma unroll
+        for (int half8 = 0; half8 < 2; ++half8) {
+          score_tile_ldm<DH>(qa, ks, kc + 8 * half8, lane, pr[half8]);
+          const float2 bj = *reinterpret_cast<const float2*>(bs + kc + 8 * half8 + 2 * t);
+          float e[4];
+          e[0] = ex2(fmaf(pr[half8][0], scale_log2, bj.x) - ma);
+          e[1] = ex2(fmaf(pr[half8][1], scale_log2, bj.y) - ma);
+          e[2] = ex2(fmaf(pr[half8][2], scale_log2, bj.x) - mb);
+          e[3] = ex2(fmaf(pr[half8][3], scale_log2, bj.y) - mb);
+          if (where == 2) {
+            const int j = key0 + kc + 8 * half8 + 2 * t;
+            if (!in_band(j, ra, half)) e[0] = 0.0f;
+            if (!in_band(j + 1, ra, half)) e[1] = 0.0f;
+            if (!in_band(j, rb, half)) e[2] = 0.0f;
+            if (!in_band(j + 1, rb, half)) e[3] = 0.0f;
+          }
+          sa += e[0] + e[1];
+          sb += e[2] + e[3];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pr[half8][i] = e[i];
+        }
+        const uint32_t pa[4] = {pack_bf16(pr[0][0], pr[0][1]), pack_bf16(pr[0][2], pr[0][3]),
+                                pack_bf16(pr[1][0], pr[1][1]), pack_bf16(pr[1][2], pr[1][3])};
+#pragma unroll
+        for (int np = 0; np < DH / 16; ++np) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vs + (kc + (lane & 15)) * (DH + kPad) + np * 16 + (lane >> 4) * 8);
+          mma_16816(acc[2 * np], pa, vb[0], vb[1]);
+          mma_16816(acc[2 * np + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (!active) return;
+  // a row that saw no valid key in its band is written as 0 (acc / inf);
+  // every lane joins both sums
+  const float ta = row_sum4(sa), tb = row_sum4(sb);
+  store_o<DH>(o + b * L.ob + h * L.oh, L.os, row0, S, g, t, acc,
+              ma < kNoValidKey ? INFINITY : ta, mb < kNoValidKey ? INFINITY : tb);
+}
+
 bool bad_args(const void* q, const void* k, const void* v, const void* o,
               const long long* st, int B, int H, int S, int dh) {
   if (B < 1 || H < 1 || S < 1 || (dh != 32 && dh != 64)) return true;
@@ -666,6 +899,24 @@ int launch_flash(const void* q, const void* k, const void* v, const void* mask, 
   attention_flash<DH, kFlashWarps><<<B * H * nqb, kFlashWarps * 32, 0, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (bf16*)o, L, H, S, nqb,
       scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_window(const void* q, const void* k, const void* v, const void* mask, void* o,
+                  const Layout& L, int B, int H, int S, int half, float scale, cudaStream_t s) {
+  constexpr int kRows = kWindowWarps * 16;
+  const size_t smem = window_smem<DH>(S, kRows, half);
+  auto kernel = attention_window_band<DH, kWindowWarps>;
+  if (smem > 48 * 1024) {  // above the default a launch may ask for
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int nqb = (S + kRows - 1) / kRows;
+  kernel<<<B * H * nqb, kWindowWarps * 32, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask, (bf16*)o, L, H, S, nqb,
+      half, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -712,6 +963,18 @@ int cs_attention_packed(const void* q, const void* k, const void* v, const void*
                                                                 scale, s);
   return launch_two_sweep<kPackedDh, 2, kPackedWarpsP2, true>(q, k, v, mask, o, L, B, H, S,
                                                               scale, s);
+}
+
+// The windowed kernel: q, k, v, o and mask as for cs_attention_full, any S;
+// each query row i over the keys j with |i - j| <= window / 2 (window >= 1).
+int cs_attention_window(const void* q, const void* k, const void* v, const void* mask, void* o,
+                        const long long* st, int B, int H, int S, int dh, int window,
+                        float scale, void* stream) {
+  if (bad_args(q, k, v, o, st, B, H, S, dh) || window < 1) return kErrBadArg;
+  const Layout L = layout_of(st);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dh == 32) return launch_window<32>(q, k, v, mask, o, L, B, H, S, window / 2, scale, s);
+  return launch_window<64>(q, k, v, mask, o, L, B, H, S, window / 2, scale, s);
 }
 
 }  // extern "C"

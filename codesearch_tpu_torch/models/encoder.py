@@ -19,8 +19,10 @@ Activations are bf16, norms run in f32, rotary angles in f32 with ``cos``
 and ``sin`` rounded to bf16, the linear layers are ``torch.matmul`` (XLA ran
 them outside any kernel) and every layer's attention is
 ``ops.attention.fused_encoder_attention``: kernels d and e on CUDA, the
-composed ``reference_attention`` for windowed and ALiBi layers (JAX has no
-kernel for them either). CLS or masked-mean pooling, then an L2 norm.
+windowed kernel for ModernBERT's local layers outside autograd, the
+composed ``reference_attention`` for ALiBi layers and for windowed ones
+under autograd (JAX composes both in XLA). CLS or masked-mean pooling, then
+an L2 norm.
 
 Two forms share the layers. The inference form (the default) holds the
 dense weights as bf16 buffers and runs under ``torch.inference_mode()``.
@@ -544,9 +546,13 @@ def _launch_counters() -> tuple:
 
 
 def _add_counts(counts: list[dict], sign: int = 1) -> None:
+    """Adds ``counts`` (one dict a counter of ``_launch_counters``) times
+    ``sign``, and to the program counters that follow the windowed routes."""
     for counter, added in zip(_launch_counters(), counts):
         for k, n in added.items():
             counter[k] += sign * n
+            if k in attention.WINDOW_COUNTERS:
+                count(attention.WINDOW_COUNTERS[k], sign * n)
 
 
 class _ForwardGraphs:

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "cs_attention_full": [_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P],
     "cs_attention_flash": [_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _F, _P],
     "cs_attention_packed": [_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _F, _P],
+    "cs_attention_window": [_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

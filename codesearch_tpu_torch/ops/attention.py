@@ -14,6 +14,11 @@ public function.
 - ``attention_flash`` (kernel e, ``pallas_attention``): the same function
   with K and V streamed in blocks of 64 keys under an online softmax, all in
   f32. Beside it its plain twin.
+- ``attention_window`` (the windowed kernel, ModernBERT's local layers):
+  kernel d's arithmetic over the keys with |i - j| <= window // 2 of each
+  query row; a row whose band holds no valid key (a padding row) reads 0.
+  Beside it its plain twin. It replaces no Pallas kernel: the JAX package
+  composes windowed attention in XLA (``reference_attention``).
 - ``fused_encoder_attention``: the encoder's entry point.
 - ``alibi_bias``: the symmetric ALiBi bias [H, S, S] of the JAX package.
 
@@ -34,7 +39,8 @@ sends S up to ``FULL_MAX_SEQ[Dh]`` to d and longer sequences to e, and d
 refuses longer ones. The TPU dispatch
 (XLA for S <= 128, d up to 1024, S a multiple of 128) was measured on a TPU
 and is not carried over. ``launch_counts`` counts kernel launches only
-(``launches_by_seq`` the same launches by sequence length).
+(``launches_by_seq`` the same launches by sequence length). The windowed
+kernel takes any S and visits only the key tiles its rows' bands meet.
 
 The backward (``_fused_attention_bwd`` of the JAX package) is not a Pallas
 kernel: JAX recomputes the forward through the XLA ``reference_attention``
@@ -49,10 +55,16 @@ backward and refuse, on CUDA, inputs that require grad while grad mode is
 on.
 
 Windowed (ModernBERT's local layers) and biased (ALiBi) attention have no
-Pallas kernel: JAX composes them in XLA on every backend. The port runs
-them as ``reference_attention`` on either device, a torch composition like
-the port's other XLA compositions, and counts each such call on CUDA in
-``composed_counts`` (by option), apart from the kernel launches.
+Pallas kernel: JAX composes them in XLA on every backend. On CUDA outside
+autograd a windowed call launches the windowed kernel; under autograd
+(training) it and every biased call run ``reference_attention``, a torch
+composition like the port's other XLA compositions, differentiated as it
+is, and each such call on CUDA counts in ``composed_counts`` (by option),
+apart from the kernel launches. CPU tensors take ``reference_attention``
+for both. The windowed layers' two routes on CUDA are also program
+counters (``utils.tracing``: ``attention.window_kernel``,
+``attention.window_composed``; ``WINDOW_COUNTERS`` names them by the count
+each follows, so a CUDA graph's replay re-adds them).
 """
 
 from __future__ import annotations
@@ -64,6 +76,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.tracing import count
 from . import _build
 
 NEG_INF = -1e30          # the additive mask value of the JAX package
@@ -73,11 +86,15 @@ HEAD_DIMS = (32, 64)     # head sizes the CUDA kernels are built for
 # sizes without a kernel take the Dh=64 value)
 FULL_MAX_SEQ = {32: 1552, 64: 832}
 
-launch_counts = {"attention_full": 0, "attention_flash": 0}
+launch_counts = {"attention_full": 0, "attention_flash": 0, "attention_window": 0}
 launches_by_seq: collections.Counter = collections.Counter()   # (kernel, S) -> launches
 # calls of the composed route on CUDA: a call with a bias counts as "bias2d",
 # a recompute of the autograd route's backward as "backward"
 composed_counts = {"window": 0, "bias2d": 0, "backward": 0}
+# the program counter that follows each windowed route, by its count's key
+# (``launch_counts["attention_window"]``, ``composed_counts["window"]``)
+WINDOW_COUNTERS = {"attention_window": "attention.window_kernel",
+                   "window": "attention.window_composed"}
 
 
 def reset_launch_counts() -> None:
@@ -174,6 +191,21 @@ def attention_flash_plain(q, k, v, mask):
     return (acc / torch.clamp(l_sum, min=1e-30)).to(q.dtype)
 
 
+def attention_window_plain(q, k, v, mask, window: int):
+    """The windowed kernel's arithmetic: d's (f32 scores times 1/sqrt(Dh),
+    the mask bias, exact row max, ``p`` cast to V's dtype for an f32 ``p @
+    V``, the f32 sum divided after) over the keys with |i - j| <= window //
+    2; a query row whose band holds no valid key reads 0."""
+    idx = torch.arange(q.shape[2], device=q.device)
+    band = ((idx[:, None] - idx[None, :]).abs() <= window // 2)[None, None]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * _sm_scale(q.shape[-1])
+    s = (s + _mask_bias(mask)).masked_fill(~band, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))   # key i is in row i's band
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / p.sum(dim=-1, keepdim=True)
+    seen = (band & (mask[:, None, None, :] != 0)).any(dim=-1, keepdim=True)
+    return o.masked_fill(~seen, 0.0).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -251,6 +283,23 @@ def attention_flash(q, k, v, mask):
     return o
 
 
+def attention_window(q, k, v, mask, window: int):
+    """The windowed kernel -> [B, H, S, Dh], any S, ``window`` >= 1: each
+    query row over the keys with |i - j| <= window // 2 (the route of
+    ``fused_encoder_attention(window=w)`` on CUDA outside autograd); a row
+    whose band holds no valid key reads 0."""
+    if window < 1:
+        raise ValueError(f"window={window}: the windowed kernel takes a window of 1 or more")
+    if _on_cpu(q, k, v, mask):
+        return attention_window_plain(q, k, v, mask, window)
+    _check_cuda_inputs(q, k, v, mask)
+    o = _launch("cs_attention_window", q, k, v, mask, window)
+    launch_counts["attention_window"] += 1
+    launches_by_seq["attention_window", q.shape[2]] += 1
+    count(WINDOW_COUNTERS["attention_window"])
+    return o
+
+
 def _kernel_route(q, k, v, mask):
     """Kernel d up to ``full_max_seq(Dh)``, kernel e beyond."""
     if q.shape[2] <= full_max_seq(q.shape[3]):
@@ -283,14 +332,23 @@ class KernelAttention(torch.autograd.Function):
 def fused_encoder_attention(q, k, v, mask, window: int = 0, bias2d=None):
     """The encoder's attention: kernel d up to ``full_max_seq(Dh)``, kernel
     e beyond (CPU tensors take their plain twins), through ``KernelAttention``
-    when q, k or v requires grad and grad mode is on. Windowed and biased
-    attention take ``reference_attention`` on either device, as JAX sends
-    them to its XLA composition on every backend, and differentiate as they
-    are; on CUDA each such call counts in ``composed_counts``."""
+    when q, k or v requires grad and grad mode is on. A windowed call on
+    CUDA outside autograd launches the windowed kernel. Biased attention,
+    and windowed attention on the CPU or under autograd, take
+    ``reference_attention``, as JAX sends them to its XLA composition on
+    every backend, and differentiate as they are; on CUDA each such call
+    counts in ``composed_counts``."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     if window or bias2d is not None:
-        if not _on_cpu(q, k, v, mask, bias2d):
-            composed_counts["bias2d" if bias2d is not None else "window"] += 1
+        if _on_cpu(q, k, v, mask, bias2d):
+            return reference_attention(q, k, v, mask, window=window, bias2d=bias2d)
+        if bias2d is None and not grad:
+            return attention_window(q, k, v, mask, window)
+        route = "bias2d" if bias2d is not None else "window"
+        composed_counts[route] += 1
+        if route in WINDOW_COUNTERS:
+            count(WINDOW_COUNTERS[route])
         return reference_attention(q, k, v, mask, window=window, bias2d=bias2d)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if grad:
         return KernelAttention.apply(q, k, v, mask)
     return _kernel_route(q, k, v, mask)

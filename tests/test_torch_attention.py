@@ -134,7 +134,7 @@ def test_cpu_dispatch_takes_the_twin_of_the_kernel_cuda_would_launch(monkeypatch
     monkeypatch.setattr(ta, "full_max_seq", lambda dh: 16)
     ta.fused_encoder_attention(q, k, v, mask)
     assert calls == ["attention_full_plain", "attention_flash_plain"]
-    assert ta.launch_counts == {"attention_full": 0, "attention_flash": 0}
+    assert ta.launch_counts == {"attention_full": 0, "attention_flash": 0, "attention_window": 0}
 
 
 def test_kernel_d_sequence_bound(monkeypatch):
@@ -225,7 +225,7 @@ def as_if_cuda(monkeypatch):
     monkeypatch.setattr(_build, "load", no_load)
     ta.reset_launch_counts()
     yield
-    assert ta.launch_counts == {"attention_full": 0, "attention_flash": 0}
+    assert ta.launch_counts == {"attention_full": 0, "attention_flash": 0, "attention_window": 0}
     ta.reset_launch_counts()
 
 
@@ -237,15 +237,19 @@ def _bf16(s=64, dh=DH):
 @pytest.mark.parametrize("case", ["window", "bias2d", "requires_grad", "kernel_requires_grad",
                                   "f32", "head_size", "strides", "beyond_d_bound"])
 def test_cuda_branch_refuses_what_the_kernels_do_not_take(as_if_cuda, monkeypatch, case):
-    # window and bias2d have no kernel to refuse them: on CUDA they take the
-    # composed route (reference_attention), counted apart from the launches;
-    # inputs that require grad take the autograd route: kernel d forward (its
-    # plain twin stands in for the launch here), reference_attention
-    # recomputed backward and counted, gradients equal to the reference's
-    # own; the kernel wrappers alone have no backward and refuse them
+    # bias2d has no kernel to refuse it, nor has window under autograd: on
+    # CUDA they take the composed route (reference_attention), counted apart
+    # from the launches (a window outside autograd launches the windowed
+    # kernel: tests/test_torch_window_attention.py); inputs that require
+    # grad take the autograd route: kernel d forward (its plain twin stands
+    # in for the launch here), reference_attention recomputed backward and
+    # counted, gradients equal to the reference's own; the kernel wrappers
+    # alone have no backward and refuse them
     q, k, v, mask = _bf16()
     if case in ("window", "bias2d"):
         kw = {"window": 16} if case == "window" else {"bias2d": ta.alibi_bias(H, 64)}
+        if case == "window":
+            q = q.clone().requires_grad_(True)
         got = ta.fused_encoder_attention(q, k, v, mask, **kw)
         assert torch.equal(got, ta.reference_attention(q, k, v, mask, **kw))
         assert ta.composed_counts == {"window": 0, "bias2d": 0, "backward": 0, case: 1}
@@ -254,7 +258,8 @@ def test_cuda_branch_refuses_what_the_kernels_do_not_take(as_if_cuda, monkeypatc
         leaves, ref_leaves = ([t.clone().requires_grad_(True) for t in (q, k, v)]
                               for _ in range(2))
         out = ta.fused_encoder_attention(*leaves, mask)
-        assert ta.launch_counts == {"attention_full": 1, "attention_flash": 0}
+        assert ta.launch_counts == {"attention_full": 1, "attention_flash": 0,
+                                    "attention_window": 0}
         assert ta.composed_counts["backward"] == 0
         g = torch.from_numpy(np.random.default_rng(8).standard_normal(out.shape)
                              .astype(np.float32)).to(torch.bfloat16)

@@ -18,7 +18,7 @@ bases, sliding-window local layers, a final norm) and the ALiBi BERT.
   tree and compute the same embeddings.
 - On the card (``cuda``): the GPU forward against the CPU one at the
   published widths, kernel d launched on every global layer and the
-  composed windowed route counted on the local ones.
+  windowed kernel on the local ones.
 """
 
 import dataclasses
@@ -321,6 +321,7 @@ def test_rotary_family_on_cuda_matches_cpu(cuda, model):
     globals_ = sum(1 for i in range(cfg.layers) if cfg.arch_style == "nomic"
                    or i % cfg.global_every == 0)
     assert ta.launch_counts["attention_full"] == globals_
-    assert ta.composed_counts["window"] == cfg.layers - globals_
+    assert ta.launch_counts["attention_window"] == cfg.layers - globals_
+    assert ta.composed_counts["window"] == 0
     b = cpu.encode(ids, mask).numpy()
     assert _cos_rows(a, b).min() >= 0.999
