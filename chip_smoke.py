@@ -163,6 +163,17 @@ when any phase fails:
    launches of (a) and (b) are the path "train_mesh", and d is timed at the
    local-head shape (B=32, H=6, S=128, Dh=32).
 
+15. the checkpoints of the benchmark's index cells (nomic-v1.5,
+   modernbert-large: seeded fp16 ``model.safetensors``) read by
+   ``read_safetensors`` onto the card through its pinned ring and onto the
+   CPU: every tensor byte-equal; the ring's read timed against a plain one
+   (the whole data section into one pageable host tensor, one copy); the
+   encoder ``load_safetensors`` builds on the card equal, buffer for
+   buffer, to the one built from the host path it replaced (numpy, f32,
+   transposed on the host, uploaded from pageable memory); each path's
+   seconds, bytes/s and device peak logged, in turns (after phase 10 in the
+   full run).
+
 Beside each kernel's time (CUDA events around one call) it prints its
 bound on the card (the larger of the bytes it must move over 3.35 TB/s and
 its operations over the peak rate of their type), for every kernel and the
@@ -2414,6 +2425,158 @@ def encoder_family(work: Path, device: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: a checkpoint read onto the card
+# ---------------------------------------------------------------------------
+
+CHECKPOINT_MODELS = ("nomic-v1.5", "modernbert-large")
+CHECKPOINT_SEED = 1500000001
+
+
+def host_path_tree(path: Path, cfg) -> dict:
+    """The host path ``load_safetensors`` replaced, for its time and memory
+    only: every tensor read as numpy by ``safetensors`` and widened to f32,
+    the dense kernels transposed and laid out on the host; ``BertEncoder``
+    then uploads each leaf as f32 from pageable memory and casts it there."""
+    import numpy as np
+    import torch
+    from safetensors import safe_open
+
+    from codesearch_tpu_torch.models import encoder as enc
+
+    with safe_open(str(path), framework="np") as f:
+        raw = {k: torch.from_numpy(np.array(f.get_tensor(k), np.float32)) for k in f.keys()}
+    flat = enc.flatten_params(enc.checkpoint_params(raw, cfg))
+    return enc.unflatten_params({k: np.ascontiguousarray(v.numpy()) for k, v in flat.items()})
+
+
+def plain_fill(f, blob) -> None:
+    """The simpler fill the reader's ring is held against: the whole data
+    section into one pageable host tensor, then one copy to ``blob``."""
+    import torch
+
+    from codesearch_tpu_torch.models import encoder as enc
+
+    host = torch.empty(blob.numel(), dtype=torch.uint8)
+    enc._read_into(f, memoryview(host.numpy()))
+    blob.copy_(host)
+
+
+def timed_reads(path: Path, device: str, turns: int = 3) -> dict:
+    """Seconds of ``read_safetensors(path, device)`` with the ring's fill
+    and with ``plain_fill``, in turns (ring, plain, plain, ring), after one
+    read that pins the ring."""
+    import torch
+
+    from codesearch_tpu_torch.models import encoder as enc
+
+    ring_fill, out = enc._fill, {"ring": [], "plain": []}
+    try:
+        for i, side in enumerate(["ring"] + ["ring", "plain", "plain", "ring"] * turns):
+            enc._fill = ring_fill if side == "ring" else plain_fill
+            _sync(device)
+            t = time.perf_counter()
+            tensors = enc.read_safetensors(path, device)
+            _sync(device)
+            if i:
+                out[side].append(time.perf_counter() - t)
+            del tensors
+    finally:
+        enc._fill = ring_fill
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _state_bits(module) -> dict:
+    import torch
+
+    out = {}
+    for name, t in (*module.named_buffers(), *module.named_parameters()):
+        ints = torch.int16 if t.element_size() == 2 else torch.int32
+        out[name] = t.detach().view(ints)
+    return out
+
+
+def timed_encoder_build(path: Path, cfg, device: str, staged: bool) -> tuple:
+    """(encoder, seconds, device bytes above the start at the peak) of one
+    build from ``path``: through ``load_safetensors`` (``staged``) or
+    through ``host_path_tree``; the checkpoint's bytes dropped after."""
+    import torch
+
+    from codesearch_tpu_torch.models import encoder as enc
+
+    _sync(device)
+    base = torch.cuda.memory_allocated() if device == "cuda" else 0
+    _peak_reset(device)
+    t = time.perf_counter()
+    tree = enc.load_safetensors(path, cfg, device) if staged else host_path_tree(path, cfg)
+    model = enc.BertEncoder(cfg, tree, device=device)
+    del tree
+    _sync(device)
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base if device == "cuda" else "not measured"
+    return model, seconds, peak
+
+
+def checkpoint_phase(work: Path, device: str) -> dict:
+    """Phase 15: the nomic-v1.5 and modernbert-large checkpoints the
+    benchmark writes (seeded, fp16, ``bench_cells.gen.weights``) read by
+    ``read_safetensors`` onto the card (pinned ring) and onto the CPU (one
+    straight read): every tensor byte-equal; the ring's read against a
+    plain one (``timed_reads``). The encoder built by
+    ``load_safetensors`` on the card equals, buffer for buffer, the one the
+    host path builds (``host_path_tree``). Each load's seconds, bytes/s and
+    device peak above its start, the two paths in turns (staged, host,
+    host, staged), the file warm in the page cache."""
+    import torch
+
+    from bench_cells.gen.weights import make_weights, write_checkpoint
+    from bench_cells.harness import HERE, model_dims
+    from codesearch_tpu_torch.models import encoder as enc
+    from codesearch_tpu_torch.models.registry import MODELS
+
+    out = {}
+    for name in CHECKPOINT_MODELS:
+        dims = model_dims(json.loads((HERE / "configs" / f"{name}.json").read_text()))
+        path = work / "checkpoints" / name / "model.safetensors"
+        write_checkpoint(make_weights(dims, CHECKPOINT_SEED, device), path)
+        cfg = MODELS[name].arch
+        on_card, on_host = enc.read_safetensors(path, device), enc.read_safetensors(path, "cpu")
+        check(sorted(on_card) == sorted(on_host), f"{name}: the two reads hold other tensors")
+        for k, t in on_host.items():
+            check(t.dtype == on_card[k].dtype and t.shape == on_card[k].shape
+                  and torch.equal(on_card[k].cpu().view(torch.uint8),
+                                  t.contiguous().view(torch.uint8)),
+                  f"{name}: {k} read onto the card differs from the CPU read")
+        n_bytes, n_tensors = path.stat().st_size, len(on_host)
+        del on_card, on_host
+        reads = timed_reads(path, device)
+        runs = {"staged": [], "host": []}
+        built = {}
+        for staged in (True, False, False, True):
+            model, seconds, peak = timed_encoder_build(path, cfg, device, staged)
+            runs["staged" if staged else "host"].append({"seconds": seconds, "peak_bytes": peak})
+            built.setdefault(staged, _state_bits(model))
+            del model
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        want, got = built[False], built[True]
+        check(sorted(got) == sorted(want), f"{name}: the two encoders hold other buffers")
+        for k in want:
+            check(torch.equal(got[k], want[k]), f"{name}: {k} differs from the host path's")
+        res = {"file_bytes": n_bytes, "tensors": n_tensors, "buffers": len(want),
+               "read": {side: {"seconds": v, "median_bytes_per_s": n_bytes / statistics.median(v)}
+                        for side, v in reads.items()}}
+        for side, rs in runs.items():
+            best = min(r["seconds"] for r in rs)
+            res[side] = {"seconds": [r["seconds"] for r in rs], "bytes_per_s": n_bytes / best,
+                         "peak_bytes": [r["peak_bytes"] for r in rs]}
+        out[name] = res
+        log(f"phase 15 {name}: {json.dumps(res)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 11: training on the card
 # ---------------------------------------------------------------------------
 
@@ -3778,6 +3941,8 @@ def main() -> int:
         served = serving(work, "cuda")
         family = encoder_family(work, "cuda")
         log(f"phase 10 results ({smi}): {json.dumps(family, default=str)}")
+        loads = checkpoint_phase(work, "cuda")
+        log(f"phase 15 results ({smi}): {json.dumps(loads)}")
         trained = training(work, "cuda")
         log(f"phase 11 results ({smi}): {json.dumps(trained, default=str)}")
         t = time.perf_counter()

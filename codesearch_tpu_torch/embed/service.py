@@ -184,14 +184,16 @@ class _BertBackend:
             model_dir if model_dir.exists() else None, lowercase=self.cfg.lowercase,
             max_len=self.cfg.max_len, vocab_size=self.cfg.vocab_size)
         st = model_dir / "model.safetensors"
+        dev = resolve_device(device)
         if st.exists():
-            params = enc.load_safetensors(st, self.cfg)
+            params = enc.load_safetensors(st, self.cfg, dev)
         else:
             params = enc.cached_init_params(self.cfg)
             log.warning("no local weights for %s; using the deterministic random init "
                         "of the JAX package (place model.safetensors under %s)",
                         spec.short_name, model_dir)
-        self.encoder = enc.BertEncoder(self.cfg, params, device=resolve_device(device))
+        self.encoder = enc.BertEncoder(self.cfg, params, device=dev)
+        del params                  # a checkpoint's bytes on the device
         self.mesh = mesh_for(self.encoder.device)
         self.encoders = replicate(self.encoder, self.mesh) if self.mesh else None
         # texts, real tokens and padded tokens sent through the encoder

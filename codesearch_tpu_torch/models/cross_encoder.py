@@ -105,9 +105,11 @@ class CrossEncoder:
         self.pretrained = st is not None and st.exists()
         self.encoder = self._head = self._proxy = None
         if self.pretrained:
-            self.encoder = enc.BertEncoder(self.cfg, enc.load_safetensors(st, self.cfg),
+            tensors = enc.read_safetensors(st, self.device)
+            self.encoder = enc.BertEncoder(self.cfg, enc.checkpoint_params(tensors, self.cfg),
                                            device=self.device)
-            self._head = self._load_head(st)
+            self._head = self._load_head(tensors)
+            del tensors             # the checkpoint's bytes on the device
         else:
             from .hash_embedder import HashEmbedder
 
@@ -119,17 +121,14 @@ class CrossEncoder:
         'proxy-bi-encoder' (zero-egress cosine fallback)."""
         return MODE_MODEL if self.pretrained else MODE_PROXY
 
-    def _load_head(self, st: Path) -> dict:
-        """The pooler (None when absent) and classifier as f32 on the device."""
-        from .encoder import read_safetensors
-
-        tensors, _ = read_safetensors(st)
-
+    @staticmethod
+    def _load_head(tensors: dict) -> dict:
+        """The pooler (None when absent) and classifier of a checkpoint's
+        tensors (``read_safetensors``) as new f32 tensors on their device."""
         def grab(*names):
             for n in names:
                 if n in tensors:
-                    arr = np.ascontiguousarray(tensors[n], np.float32)
-                    return torch.from_numpy(arr).to(self.device)
+                    return tensors[n].to(torch.float32, copy=True)
             return None
 
         return {"pooler_w": grab("bert.pooler.dense.weight", "pooler.dense.weight"),

@@ -65,21 +65,25 @@ Every other forward runs eagerly.
 (parameters, gradients, Adam moments) between a rank's shards and the
 one-device layout.
 
-Weights come as the JAX package's parameter tree of numpy arrays, from one
-of three places:
+Weights come as the JAX package's parameter tree (numpy arrays, or tensors
+in a checkpoint's dtype), from one of three places:
 
 - ``params_from_jax(tree)``: a tree from the JAX package, as numpy;
 - ``init_params(cfg, seed)``: the JAX package's deterministic random init
   ``init_params(PRNGKey(seed), cfg)``, regenerated bit for bit in numpy
   (``jax_random``); ``cached_init_params`` keeps it under the config dir,
   since bge-small's ~33 M values (nomic-v1.5's 137 M) take tens of seconds;
-- ``load_safetensors(path, cfg)``: a Hugging Face checkpoint.
+- ``load_safetensors(path, cfg, device)``: a Hugging Face checkpoint, its
+  data section read once onto ``device`` as raw bytes (through a ring of
+  pinned buffers on CUDA) and viewed there as tensors; the encoder's one
+  copy of each transposes and casts it on the device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import hashlib
+import json
 import os
 import threading
 from pathlib import Path
@@ -94,7 +98,7 @@ from ..ops.attention import alibi_bias, fused_encoder_attention
 from ..parallel import train_mesh as tm
 from ..utils.constants import get_config_dir
 from ..utils.device import resolve_device
-from ..utils.tracing import count
+from ..utils.tracing import count, span
 from . import jax_random
 from .registry import ArchConfig
 
@@ -286,29 +290,110 @@ _MODERNBERT_LAYER_MAP = {
 }
 
 
-def read_safetensors(path: Path):
-    """(every tensor of a safetensors file as numpy, ``get(name)``: the f32
-    tensor under ``name`` or a ``bert.``/``model.``/``encoder.`` prefix)."""
-    from safetensors import safe_open
+# safetensors header dtypes -> the torch dtype their bytes are viewed as
+SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+}
+STAGE_BYTES = 32 << 20       # a read's step: one pinned buffer of the CUDA reader
+STAGE_SLOTS = 3              # pinned buffers in the ring
+# the CUDA reader's ring, pinned on first use and kept for the process
+# (pinning costs more than the copy it serves); the lock lends it to one read
+_RING: list[torch.Tensor] = []
+_RING_LOCK = threading.Lock()
 
-    with safe_open(str(path), framework="np") as f:
-        tensors = {key: f.get_tensor(key) for key in f.keys()}
 
-    def get(name: str) -> np.ndarray:
+def _read_into(f, view: memoryview) -> None:
+    """Fill ``view`` from the unbuffered file ``f`` (a read may return less)."""
+    while view.nbytes:
+        n = f.readinto(view)
+        if not n:
+            raise ValueError(f"{f.name}: the file ends inside its data section")
+        view = view[n:]
+
+
+def _fill(f, blob: torch.Tensor) -> None:
+    """Read the next ``blob.numel()`` bytes of ``f`` into ``blob``: on the
+    CPU straight into it; on CUDA in steps of ``STAGE_BYTES``, each into a
+    pinned buffer of the ring, then copied to the card while the next step
+    reads into the next buffer (an event per buffer guards its reuse)."""
+    if blob.device.type != "cuda":
+        _read_into(f, memoryview(blob.numpy()))
+        return
+    stream = torch.cuda.current_stream(blob.device)
+    with _RING_LOCK:
+        if not _RING:
+            _RING.extend(torch.empty(STAGE_BYTES, dtype=torch.uint8, pin_memory=True)
+                         for _ in range(STAGE_SLOTS))
+        done: list = [None] * len(_RING)
+        try:
+            for step, at in enumerate(range(0, blob.numel(), STAGE_BYTES)):
+                slot = step % len(_RING)
+                if done[slot] is not None:
+                    done[slot].synchronize()
+                k = min(STAGE_BYTES, blob.numel() - at)
+                _read_into(f, memoryview(_RING[slot].numpy())[:k])
+                blob[at:at + k].copy_(_RING[slot][:k], non_blocking=True)
+                done[slot] = stream.record_event()
+        finally:
+            # the ring goes back, and a failed read's blob is freed, only
+            # once the copies queued have read and written them
+            stream.synchronize()
+
+
+def read_safetensors(path: Path, device=None) -> dict[str, torch.Tensor]:
+    """Every tensor of a safetensors file on ``device`` (``resolve_device``),
+    in the file's dtype: views of one uint8 tensor that holds the file's
+    data section, read once (``_fill``). A tensor whose offset is not a
+    multiple of its element size is a copy of its bytes. The span
+    ``cs.model.load`` counts the section's ``bytes`` and the ``tensors``."""
+    device = resolve_device(device)
+    with span("cs.model.load") as sp, open(path, "rb", buffering=0) as f:
+        head = bytearray(8)
+        _read_into(f, memoryview(head))
+        header_len = int.from_bytes(head, "little")
+        n = os.fstat(f.fileno()).st_size - 8 - header_len
+        if n < 0:
+            raise ValueError(f"{path}: a header of {header_len} bytes does not fit the file")
+        header = bytearray(header_len)
+        _read_into(f, memoryview(header))
+        entries = json.loads(header)
+        entries.pop("__metadata__", None)
+        blob = torch.empty(n, dtype=torch.uint8, device=device)
+        _fill(f, blob)
+        tensors = {}
+        for name, e in entries.items():
+            dtype = SAFETENSORS_DTYPES.get(e["dtype"])
+            if dtype is None:
+                raise ValueError(f"{path}: tensor {name!r} has dtype {e['dtype']}; the reader "
+                                 f"takes {sorted(SAFETENSORS_DTYPES)}")
+            a, b = e["data_offsets"]
+            if not 0 <= a <= b <= n:
+                raise ValueError(f"{path}: tensor {name!r} lies outside the data section")
+            raw = blob[a:b]
+            if a % dtype.itemsize:
+                raw = raw.clone()
+            tensors[name] = raw.view(dtype).view(e["shape"])
+        if sp:
+            sp.add(bytes=n, tensors=len(tensors))
+    return tensors
+
+
+def checkpoint_params(tensors: dict[str, torch.Tensor], cfg: ArchConfig) -> dict:
+    """The parameter tree of the config's family from a checkpoint's
+    tensors (``read_safetensors``), each found under its Hugging Face name
+    or that name after a ``bert.``/``model.``/``encoder.`` prefix (else
+    ``KeyError``). The leaves keep the file's dtype and device; a dense
+    kernel (``*_w``; HF stores [out, in]) is its transposed view, laid out
+    and cast when ``BertEncoder`` registers it."""
+    check_supported(cfg)
+
+    def get(name: str) -> torch.Tensor:
         for prefix in ("", "bert.", "model.", "encoder."):
             if prefix + name in tensors:
-                return np.array(tensors[prefix + name], np.float32)
+                return tensors[prefix + name]
         raise KeyError(f"missing tensor {name!r} (available: {len(tensors)})")
-
-    return tensors, get
-
-
-def load_safetensors(path: Path, cfg: ArchConfig) -> dict:
-    """A Hugging Face checkpoint (``model.safetensors``) of the config's
-    family as the parameter tree; dense kernels are transposed (HF stores
-    [out, in])."""
-    check_supported(cfg)
-    _, get = read_safetensors(path)
 
     def layer(prefix: str, names: dict, skip=()) -> dict:
         out = {}
@@ -316,7 +401,7 @@ def load_safetensors(path: Path, cfg: ArchConfig) -> dict:
             if ours in skip:
                 continue
             t = get(prefix + theirs)
-            out[ours] = np.ascontiguousarray(t.T) if ours.endswith("_w") else t
+            out[ours] = t.t() if ours.endswith("_w") else t
         return out
 
     if cfg.arch_style == "nomic":
@@ -340,6 +425,14 @@ def load_safetensors(path: Path, cfg: ArchConfig) -> dict:
         emb["position"] = get("embeddings.position_embeddings.weight")
     layers = [layer(f"encoder.layer.{i}.", HF_LAYER_MAP) for i in range(cfg.layers)]
     return {"embeddings": emb, "layers": layers}
+
+
+def load_safetensors(path: Path, cfg: ArchConfig, device=None) -> dict:
+    """A Hugging Face checkpoint (``model.safetensors``) of the config's
+    family as the parameter tree on ``device`` (``checkpoint_params`` of
+    ``read_safetensors``). The tree holds the file's bytes on the device
+    until it is dropped: drop it once the encoder is built."""
+    return checkpoint_params(read_safetensors(path, device), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -376,12 +469,22 @@ def _is_dense(name: str) -> bool:
 
 def _register(module: nn.Module, name: str, arr, device, trainable: bool,
               dtype=torch.float32) -> None:
-    """``arr`` as an f32 parameter (``trainable``) or a buffer of ``dtype``."""
-    t = torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(device)
+    """``arr`` (a numpy array, or a tensor such as a checkpoint's transposed
+    view) as an f32 parameter (``trainable``) or a buffer of ``dtype``: a
+    new contiguous tensor on ``device`` that shares no memory with ``arr``,
+    filled by one copy that lays it out and casts it. f16 and bf16 values
+    are f32 values, so each value rounds at most once, to ``dtype``, as an
+    f32 leaf does (an f64 one rounds to f32 first)."""
+    src = arr if isinstance(arr, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(device)
+    if src.dtype == torch.float64:
+        src = src.float()
+    t = torch.empty(src.shape, dtype=torch.float32 if trainable else dtype, device=device)
+    t.copy_(src)
     if trainable:
         module.register_parameter(name, nn.Parameter(t))
     else:
-        module.register_buffer(name, t.to(dtype))
+        module.register_buffer(name, t)
 
 
 class _Layer(nn.Module):
@@ -437,8 +540,9 @@ class _BertLayer(_Layer):
     GELU MLP; ``bias2d`` is the ALiBi bias of an ALiBi model."""
 
     def __init__(self, cfg: ArchConfig, p: dict, device, trainable: bool = False, mesh=None):
-        fused = {"qkv_w": np.concatenate([p["q_w"], p["k_w"], p["v_w"]], axis=1),
-                 "qkv_b": np.concatenate([p["q_b"], p["k_b"], p["v_b"]])}
+        cat = lambda *ts: torch.cat([torch.as_tensor(t) for t in ts], dim=-1)  # noqa: E731
+        fused = {"qkv_w": cat(p["q_w"], p["k_w"], p["v_w"]),
+                 "qkv_b": cat(p["q_b"], p["k_b"], p["v_b"])}
         rest = {k: v for k, v in p.items() if k[:2] not in ("q_", "k_", "v_")}
         super().__init__(cfg, {**fused, **rest}, device, trainable, mesh)
         if mesh is not None:        # this rank's heads

@@ -140,7 +140,7 @@ def test_safetensors_match_hf(tmp_path):
     save_file({k: v.contiguous() for k, v in hf.state_dict().items()
                if v.dtype.is_floating_point}, str(st))
     cfg = ArchConfig(vocab_size=211, hidden=64, layers=3, heads=4, intermediate=128, max_len=96)
-    enc = te.BertEncoder(cfg, te.load_safetensors(st, cfg), device="cpu")
+    enc = te.BertEncoder(cfg, te.load_safetensors(st, cfg, "cpu"), device="cpu")
     rng = np.random.default_rng(0)
     ids = rng.integers(0, 211, (2, 24))
     mask = np.ones((2, 24), np.int64)

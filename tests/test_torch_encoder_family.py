@@ -152,7 +152,7 @@ def test_rope_matches_jax(base):
 
 def _jax_and_port_checkpoint(path, cfg):
     jp = je.load_safetensors(path, cfg)
-    tp = te.load_safetensors(path, cfg)
+    tp = te.load_safetensors(path, cfg, "cpu")
     a, b = te.flatten_params(te.params_from_jax(jp)), te.flatten_params(tp)
     assert set(a) == set(b)
     assert all(_bits_equal(a[k], b[k]) for k in a)
@@ -182,7 +182,7 @@ def test_missing_checkpoint_tensor_raises(tmp_path):
     st = tmp_path / "model.safetensors"
     _synthetic_nomic(st, NOMIC_CFG)
     with pytest.raises(KeyError, match="missing tensor"):
-        te.load_safetensors(st, dataclasses.replace(NOMIC_CFG, layers=3))
+        te.load_safetensors(st, dataclasses.replace(NOMIC_CFG, layers=3), "cpu")
 
 
 def test_unknown_family_raises():

@@ -451,6 +451,7 @@ SNAPSHOT = {"spans": {
     "cs.index.diff": _agg(0.1, count=2),
     "cs.index.chunk": _agg(0.4),
     "cs.embed.tokenize": _agg(1.0),
+    "cs.model.load": _agg(0.3, bytes=1 << 20, tensors=8),
 }, "counters": {}}
 READS = {
     "readplane.featurize_ms.query": 3.0, "readplane.padded_share.query": 25.0,
@@ -459,6 +460,7 @@ READS = {
     "ranking.materialize_ms.query": 2.5,
     "index.open_share": 12.5, "index.walk_share": 7.5, "index.chunk_share": 10.0,
     "embed.tokenize_share.index": 25.0, "embed.readback_share.index": 0.1,
+    "model.load_share.index": 7.5,
 }
 
 

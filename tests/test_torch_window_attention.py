@@ -228,7 +228,7 @@ def _small_case(tmp_path, seed: int):
                for name, t in make_weights(SMALL, seed, "cpu").items()}
     path = tmp_path / f"modernbert-{seed}" / "model.safetensors"
     write_checkpoint(weights, path)
-    enc = te.BertEncoder(cfg, te.load_safetensors(path, cfg), device="cpu")
+    enc = te.BertEncoder(cfg, te.load_safetensors(path, cfg, "cpu"), device="cpu")
     g = torch.Generator().manual_seed(seed)
     ids = torch.randint(999, SMALL["vocab"], (4, 40), generator=g)
     mask = torch.zeros(4, 40)
