@@ -1443,8 +1443,8 @@ def gpu_against_cpu(gpu, cpu, queries, label: str = BERT_MODEL) -> dict:
         qc = cpu.service.backend.encoder.encode(torch.from_numpy(ids), torch.from_numpy(mask))
         cos_min = min(cos_min, float((qg * qc).sum(-1).min()))
         emb_err = max(emb_err, float((qg - qc).abs().max()))
-        cids, scores = gpu.store.search_encoded(gpu.service.backend.encoder, ids, mask,
-                                                st["fetch"], raw=True)
+        cids, scores = gpu.store.rows_to_ids(*gpu.store.dispatch(gpu.service.backend, ids,
+                                                                 mask, st["fetch"]))
         dev = gpu.store._device
         k = min(st["fetch"], gpu.store._n_valid())
         ref = gpu.store.rows_to_ids(*ft.fused_cosine_topk_plain(qg.to(gpu.device), dev[1],
@@ -1636,13 +1636,11 @@ def wave_kernel_check(session, plans) -> tuple[dict, object]:
     import numpy as np
     import torch
 
-    from codesearch_tpu_torch.models.hash_embedder import embed_features
     from codesearch_tpu_torch.ops import fused_topk as ft
 
-    hashed = session.service.fused_kind() == "hash"
     tmax = max(p["feats"][0].shape[1] for p in plans)
     ids = np.zeros((sum(p["feats"][0].shape[0] for p in plans), tmax), np.int32)
-    aux = np.zeros(ids.shape, np.float32 if hashed else np.int32)
+    aux = np.zeros(ids.shape, plans[0]["feats"][1].dtype)
     row = 0
     for p in plans:
         f_ids, f_aux = p["feats"]
@@ -1651,9 +1649,7 @@ def wave_kernel_check(session, plans) -> tuple[dict, object]:
         row += len(f_ids)
     ids_t = torch.from_numpy(ids).to(session.device)
     aux_t = torch.from_numpy(aux).to(session.device)
-    backend = session.service.backend
-    vecs = (embed_features(backend.model.table, ids_t, aux_t) if hashed
-            else backend.encoder.encode(ids_t, aux_t))
+    vecs = session.service.backend.embed_queries(ids_t, aux_t)
     kind, mat, scale, valid = session.store._device
     k = min(max(p["fetch"] for p in plans), session.store._n_valid())
     out = {"q": int(vecs.shape[0]), "k": k}
@@ -1741,7 +1737,7 @@ def wave_against_sequential(session, queries, tag: str) -> dict:
     # the CPU's bf16 GEMMs round by row count, so a CPU rehearsal's
     # bge-small wave vectors move by about 1e-3 and random-init near-ties
     # reorder; the card's do not, and there every wave is held exactly
-    exact = device == "cuda" or session.service.fused_kind() == "hash"
+    exact = device == "cuda" or session.service.spec.kind == "hash"
     check(not exact or same == len(queries),
           f"{tag}: {len(queries) - same} wave queries rank other hits than their own search calls")
     out["kernel_at_wave_shape"], vecs = wave_kernel_check(session, plans)

@@ -3,17 +3,23 @@ text preparation, batching, device inference, caching.
 
 The bulk-index path of the reference EmbeddingService (src/embed/mod.rs:17-292):
 persistent-cache lookup by chunk hash → device inference for misses →
-write-back, order-preserving merge. Queries are embedded inside the search
-pipeline's one device call (``featurize_queries``); ``embed_query`` embeds
-one on its own, through a query LRU, for the HTTP server's vector mode. The
-backend that turns texts into vectors runs on ``device``: the hash embedder
-for hash models, the encoder (``models/encoder.py``: BERT, Nomic and
-ModernBERT; attention kernels d and e on CUDA, ModernBERT's local layers
-through the composed windowed attention) for every other registry model,
-tokenized on the host into power-of-two token buckets. On a corpus mesh
-(``parallel.mesh.corpus_mesh``) both backends shard their embed batches
-over the mesh's "data" axis (``parallel.dp_embed``), the model copied once
-to each distinct device.
+write-back, order-preserving merge. The backend that turns texts into
+vectors runs on ``device``: the hash embedder for hash models, the encoder
+(``models/encoder.py``: BERT, Nomic and ModernBERT; attention kernels d and
+e on CUDA, ModernBERT's local layers on the windowed kernel) for every other
+registry model, tokenized on the host into power-of-two token buckets. On a
+corpus mesh (``parallel.mesh.corpus_mesh``) both backends shard their embed
+batches over the mesh's "data" axis (``parallel.dp_embed``), the model
+copied once to each distinct device.
+
+Queries are embedded inside the store's one device call
+(``VectorStore.dispatch``). Both backends answer it with the same two
+methods: ``featurize_queries(texts) -> (ids, aux)`` on the host (hash
+features and weights, or token ids and mask) and ``embed_queries(ids_t,
+aux_t) -> [Q, d]`` on the device (a table gather, or the encoder forward).
+``host_table()`` is the hash table's host copy for the store's small-corpus
+route, None for an encoder. ``embed_query`` embeds one query on its own,
+through a query LRU, for the HTTP server's vector mode.
 """
 
 from __future__ import annotations
@@ -165,6 +171,19 @@ class _HashBackend:
     def embed(self, texts: list[str]) -> np.ndarray:
         return self.embed_async(texts)()
 
+    @staticmethod
+    def featurize_queries(texts: list[str]) -> tuple[np.ndarray, np.ndarray]:
+        """Query texts → ([Q, T] bucket ids, [Q, T] f32 weights)."""
+        return batch_features(texts)
+
+    def embed_queries(self, ids: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        """Featurized queries on the device → [Q, d] f32 unit vectors (the
+        lead device's table)."""
+        return embed_features(self.model.table, ids, weights)
+
+    def host_table(self) -> np.ndarray:
+        return self.model.table_np()
+
 
 class _BertBackend:
     """Encoder backend (every family of the registry): host tokenization
@@ -207,10 +226,8 @@ class _BertBackend:
         return min(b, 512)
 
     def featurize_queries(self, texts: list[str]) -> tuple[np.ndarray, np.ndarray]:
-        """Host tokenization for the fused read plane: query variant texts →
-        ([Q, T] ids, [Q, T] mask) padded to a power-of-two token bucket. The
-        device work (encode + top-k + BM25) happens in one call via
-        VectorStore.{search,hybrid_search}_encoded."""
+        """Host tokenization of query texts → ([Q, T] ids, [Q, T] int32
+        mask) padded to a power-of-two token bucket."""
         encs = [self.tokenizer.encode(t) for t in texts]
         max_len = self._bucket(max((len(e.ids) for e in encs), default=1))
         ids = np.zeros((len(texts), max_len), np.int32)
@@ -220,6 +237,17 @@ class _BertBackend:
             ids[row, :L] = e.ids[:L]
             mask[row, :L] = 1
         return ids, mask
+
+    def embed_queries(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Tokenized queries on the device → [Q, d] pooled unit vectors.
+        ``encode`` is looked up at each call, so a patch of
+        ``self.encoder.encode`` applies (and its CUDA graphs replay)."""
+        return self.encoder.encode(ids, mask)
+
+    @staticmethod
+    def host_table() -> None:
+        """An encoder has no host route."""
+        return None
 
     def embed_async(self, texts: list[str], half_transfer: bool = False):
         """Tokenize and launch every bucket's batches now; the returned
@@ -314,20 +342,6 @@ class EmbeddingService:
     @property
     def model_name(self) -> str:
         return self.spec.short_name
-
-    def fused_kind(self) -> str | None:
-        """Which fused single-dispatch read plane this backend rides:
-        "hash" (featurize → table gather), "bert" (tokenize → encoder
-        forward), or None (no fused path — per-call embed only). ONE
-        implementation consulted by the search pipeline and every serving
-        surface, so routing cannot drift between them."""
-        backend = self.backend
-        hb = getattr(backend, "model", None)
-        if hb is not None and hasattr(hb, "table"):
-            return "hash"
-        if hasattr(backend, "featurize_queries"):
-            return "bert"
-        return None
 
     # -- chunks ---------------------------------------------------------------
 

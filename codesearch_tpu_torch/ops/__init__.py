@@ -1,1 +1,1 @@
-"""Device ops: exact top-k kernels, BM25 scoring, the fused query call."""
+"""Device ops: exact top-k kernels, BM25 scoring, attention."""

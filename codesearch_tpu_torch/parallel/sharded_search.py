@@ -18,10 +18,9 @@ score as it is: ``torch.topk`` promises no tie order. BM25 runs once, on
 the lead device, where the FTS keeps its resident arrays.
 
 ``ops.topk.cosine_topk`` and ``cosine_topk_int8`` take this path when the
-corpus is a ``ShardedTensor``, so the one-device compositions of
-``ops.query_pipeline`` (embed, top-k, BM25) run unchanged on a mesh. The
-JAX package's sharded entry points are those functions under the JAX
-names; the mesh travels with the ``ShardedTensor``s.
+corpus is a ``ShardedTensor`` (the mesh travels with it), so the store's
+query entry runs unchanged on a mesh; ``sharded_cosine_topk[_int8]`` are
+those two under the JAX package's names.
 """
 
 from __future__ import annotations
@@ -29,7 +28,6 @@ from __future__ import annotations
 import torch
 
 from ..ops import fused_topk
-from ..ops import query_pipeline as qp
 from ..ops import topk
 from ..ops.bm25 import DEAD_SLOT
 
@@ -139,19 +137,7 @@ def sharded_topk(local, queries: torch.Tensor, k: int, *rows: ShardedTensor):
     return _gather_merge([o[0] for o in outs], [o[1] for o in outs], k, r, mesh.lead)
 
 
-# the JAX package's names: its one-device compositions, which shard through
+# the JAX package's names: the one-device top-k, which shards through
 # ``ops.topk`` when given ShardedTensors (``shard_corpus``)
 sharded_cosine_topk = topk.cosine_topk
 sharded_cosine_topk_int8 = topk.cosine_topk_int8
-sharded_hash_embed_search = qp.hash_embed_search
-sharded_hash_embed_search_int8 = qp.hash_embed_search_int8
-sharded_bert_embed_search = qp.bert_embed_search
-sharded_bert_embed_search_int8 = qp.bert_embed_search_int8
-sharded_hash_embed_hybrid = qp.hash_embed_hybrid_search
-sharded_hash_embed_hybrid_int8 = qp.hash_embed_hybrid_search_int8
-sharded_bert_embed_hybrid = qp.bert_embed_hybrid_search
-sharded_bert_embed_hybrid_int8 = qp.bert_embed_hybrid_search_int8
-sharded_hash_embed_hybrid_many = qp.hash_embed_hybrid_search_many
-sharded_hash_embed_hybrid_many_int8 = qp.hash_embed_hybrid_search_many_int8
-sharded_bert_embed_hybrid_many = qp.bert_embed_hybrid_search_many
-sharded_bert_embed_hybrid_many_int8 = qp.bert_embed_hybrid_search_many_int8

@@ -29,7 +29,6 @@ from ..fts import FtsStore
 from ..fts.store import stack_wave
 from ..index.db_discovery import resolve_database_with_message
 from ..index.pipeline import read_metadata
-from ..models.hash_embedder import batch_features
 from ..rerank.fusion import rrf_fusion_with_exact, vector_only
 from ..rerank.neural import NeuralReranker
 from ..utils.constants import EMBEDDER_VERSION, FTS_DIR_NAME
@@ -229,37 +228,28 @@ class SearchSession:
             st = self._prep_query(query, options)
         timings["embed"] = t.ms
         identifiers, intent, fetch = st["identifiers"], st["intent"], st["fetch"]
-        fused, feats, bm_args = st["fused"], st["feats"], st["bm"]
-        backend = self.service.backend
+        feats, bm_args = st["feats"], st["bm"]
         fused_fts = None
         exact_prefetched = None
         with stage("cs.search.dispatch") as t:
-            if bm_args is not None:
-                if fused == "hash":
-                    dev_out = self.store.hybrid_search_featurized(
-                        backend.model.table, feats[0], feats[1], fetch, bm_args,
-                        raw=True, defer=True)
-                else:
-                    dev_out = self.store.hybrid_search_encoded(
-                        backend.encoder, feats[0], feats[1], fetch, bm_args,
-                        raw=True, defer=True)
+            out = self.store.dispatch(self.service.backend, *feats, fetch, bm_args)
+            if bm_args is not None and identifiers and options.mode == "hybrid":
                 # the device call is queued: run the host-side exact-identifier
                 # scans while it computes
-                if identifiers and options.mode == "hybrid":
-                    exact_prefetched = []
-                    for ident in identifiers:
-                        exact_prefetched.extend(self.fts.search_exact(
-                            ident, kind=intent.value if intent else None, limit=fetch))
-                vv, vi, bv, bi = to_host(*dev_out)
+                exact_prefetched = []
+                for ident in identifiers:
+                    exact_prefetched.extend(self.fts.search_exact(
+                        ident, kind=intent.value if intent else None, limit=fetch))
+            if out is None:    # no live row: no hits from either device leg
+                vector_ranked = []
+                fused_fts = [] if bm_args is not None else None
+            elif bm_args is None:
+                vector_ranked = self._dedup_raw(self.store.rows_to_ids(*out), fetch)
+            else:
+                vv, vi, bv, bi = to_host(*out)
                 raw = self.store.rows_to_ids(vv, vi)
                 fused_fts = self.fts.results_from_device(bv, bi, fetch)
-            elif fused == "hash":
-                raw = self.store.search_featurized_auto(
-                    backend.model, feats[0], feats[1], fetch, raw=True)
-            else:
-                raw = self.store.search_encoded(
-                    backend.encoder, feats[0], feats[1], fetch, raw=True)
-            vector_ranked = self._dedup_raw(raw, fetch)
+                vector_ranked = self._dedup_raw(raw, fetch)
         timings["vector"] = t.ms
         return self._finish(
             query, options, identifiers, intent, st["vk"], st["fk"], fetch,
@@ -486,12 +476,8 @@ class SearchSession:
             fetch = max(options.limit * 5, 200)
         if phrases or exclusions:
             fetch = max(fetch, 500)
-        fused = self.service.fused_kind()
-        prefixed = [self.service.spec.query_prefix + v for v in variants]
-        if fused == "hash":
-            feats = batch_features(prefixed)
-        else:
-            feats = self.service.backend.featurize_queries(prefixed)
+        feats = self.service.backend.featurize_queries(
+            [self.service.spec.query_prefix + v for v in variants])
         bm_args = None
         if options.mode == "hybrid":
             bm_args = self.fts.device_query_args(
@@ -499,7 +485,7 @@ class SearchSession:
         return {
             "query": query, "identifiers": identifiers, "intent": intent,
             "vk": vector_k, "fk": fts_k, "fetch": fetch, "feats": feats,
-            "bm": bm_args, "fused": fused, "variants": variants,
+            "bm": bm_args, "variants": variants,
         }
 
     def search_many(self, queries: list[str],
@@ -571,11 +557,10 @@ class SearchSession:
             return out  # type: ignore[return-value]
 
         # ---- assemble ONE device call for the whole wave -------------------
-        fused = self.service.fused_kind()
         tmax = max(st["feats"][0].shape[1] for st in live)
         qtot = sum(st["feats"][0].shape[0] for st in live)
         ids_all = np.zeros((qtot, tmax), np.int32)
-        aux_all = np.zeros((qtot, tmax), np.float32 if fused == "hash" else np.int32)
+        aux_all = np.zeros((qtot, tmax), live[0]["feats"][1].dtype)
         row = 0
         for st in live:
             f_ids, f_aux = st["feats"]
@@ -588,8 +573,7 @@ class SearchSession:
         hyb = [st for st in live if st["bm"] is not None]
         for hi, st in enumerate(hyb):
             st["hi"] = hi
-        backend = self.service.backend
-        dev_out = raw_all = None
+        bm_batch = None
         if hyb:
             stacked = stack_wave(
                 self.fts, [(st["query"], st["intent"].value if st["intent"] else None,
@@ -599,23 +583,14 @@ class SearchSession:
             for st, bm in zip(hyb, stacked[0]):
                 st["bm"] = bm
             bm_batch = stacked[1]
-            if fused == "hash":
-                dev_out = self.store.hybrid_search_featurized_many(
-                    backend.model.table, ids_all, aux_all, kvmax, bm_batch)
-            else:
-                dev_out = self.store.hybrid_search_encoded_many(
-                    backend.encoder, ids_all, aux_all, kvmax, bm_batch)
-            if dev_out is None:   # the store emptied under us
-                return self._search_many_waves(queries, options)
-        elif fused == "hash":
-            raw_all = self.store.search_featurized_auto(
-                backend.model, ids_all, aux_all, kvmax, raw=True)
-        else:
-            raw_all = self.store.search_encoded(
-                backend.encoder, ids_all, aux_all, kvmax, raw=True)
+        dev_out = self.store.dispatch(self.service.backend, ids_all, aux_all, kvmax, bm_batch)
+        if dev_out is None:   # the store emptied under us
+            return self._search_many_waves(queries, options)
         self._exact_scans(hyb)
         bv = bi = None
-        if dev_out is not None:
+        if bm_batch is None:
+            raw_all = self.store.rows_to_ids(*dev_out)
+        else:
             vv, vi, bv, bi = to_host(*dev_out)
             raw_all = self.store.rows_to_ids(vv, vi)
         cids_all, scores_all = raw_all

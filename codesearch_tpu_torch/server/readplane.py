@@ -1,17 +1,19 @@
 """Shared server-side read plane on torch (the port of
-``codesearch_tpu/server/readplane.py``): ONE implementation of the fused
-device call + 3-way RRF fusion + boosts, used by both the MCP service and
-the HTTP server (and their warmups), so every serving surface runs the same
-device path as the CLI pipeline.
+``codesearch_tpu/server/readplane.py``): the device call + 3-way RRF fusion +
+boosts used by both the MCP service and the HTTP server (and their warmups).
+The device call is the store's one entry, ``VectorStore.dispatch``, as in
+the CLI session (``search/pipeline.py``); planning, featurization and
+unpacking around it are assembled here and in the session each on its own
+(the session expands query variants, the read plane sends one).
 
 Also home of the serving-side dynamic micro-batcher: concurrent requests
-coalesce into ONE batched fused call (the ``*_many`` ops: one launch of
-kernel a or b for the wave's rows, one batched BM25 call), the analog of
-inference-server dynamic batching — a wave of B queries costs one
-readback wait and one well-fed kernel instead of B serialized calls. (The
-reference serves each HTTP request on its own rayon thread with per-query
-retrieval, src/server/mod.rs:484-596.) The variant rows are not padded:
-the port compiles nothing per shape.
+coalesce into ONE batched call (one launch of kernel a or b for the wave's
+rows, one batched BM25 call), the analog of inference-server dynamic
+batching — a wave of B queries costs one readback wait and one well-fed
+kernel instead of B serialized calls. (The reference serves each HTTP
+request on its own rayon thread with per-query retrieval,
+src/server/mod.rs:484-596.) The variant rows are not padded: the port
+compiles nothing per shape.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ import time
 import numpy as np
 
 from ..fts.store import stack_wave
-from ..models.hash_embedder import batch_features
 from ..rerank.fusion import rrf_fusion_with_exact
 from ..search.analysis import (
     DOC_PATH_PENALTY,
@@ -44,15 +45,12 @@ from ..utils.tracing import span
 
 
 def _featurize(service, texts: list[str]):
-    """Host featurization of query texts (the model's query prefix applied):
-    hash features, or token ids and mask for a BERT-family model. The span
-    counts the real token positions and the padding beside them."""
+    """Host featurization of query texts (the model's query prefix applied)
+    by the embedding backend. The span counts the real token positions and
+    the padding beside them."""
     with span("cs.readplane.featurize") as sp:
-        prefixed = [service.spec.query_prefix + t for t in texts]
-        if service.fused_kind() == "hash":
-            feats = batch_features(prefixed)
-        else:
-            feats = service.backend.featurize_queries(prefixed)
+        feats = service.backend.featurize_queries(
+            [service.spec.query_prefix + t for t in texts])
         if sp:
             real = int(np.count_nonzero(feats[1]))
             sp.add(tokens=real, padded=int(feats[1].size) - real)
@@ -60,45 +58,32 @@ def _featurize(service, texts: list[str]):
 
 
 def device_candidates(stores, service, query: str, kind: str | None, fetch: int):
-    """The fused read plane for one query: embed + vector top-k + BM25
-    top-k in ONE device call (same path as the session pipeline), for
-    either model family. Returns (vector results, fts results or None).
-    Callers hold stores.lock."""
-    backend = service.backend
-    fres = None
-    feats = _featurize(service, [parse_operators(query)[0] or query])
+    """One query's device call: embed + vector top-k + BM25 top-k
+    (``VectorStore.dispatch``). Returns (vector results, fts results or
+    None). Callers hold stores.lock."""
+    ids, aux = _featurize(service, [parse_operators(query)[0] or query])
     with span("cs.fts.plan"):
         bm = stores.fts.device_query_args(query, kind, fetch)
-    if bm is not None:
-        if service.fused_kind() == "hash":
-            per_variant, bvv, bii = stores.store.hybrid_search_featurized(
-                backend.model.table, feats[0], feats[1], fetch, bm)
-        else:
-            per_variant, bvv, bii = stores.store.hybrid_search_encoded(
-                backend.encoder, feats[0], feats[1], fetch, bm)
-        vres = per_variant[0]
-        if bvv is not None:
-            with span("cs.readplane.unpack"):
-                fres = stores.fts.results_from_device(bvv, bii, fetch)
-    elif service.fused_kind() == "hash":
-        # routed: small corpora score the vector leg on host numpy (same
-        # decision point as the session pipeline)
-        vres = stores.store.search_featurized_auto(
-            backend.model, feats[0], feats[1], fetch)[0]
-    else:
-        vres = stores.store.search_encoded(backend.encoder, feats[0], feats[1], fetch)[0]
+    out = stores.store.dispatch(service.backend, ids, aux, fetch, bm)
+    if out is None:            # no live row: BM25 is scored on the host
+        return [], None
+    if bm is None:
+        return stores.store._materialize(*out)[0], None
+    vv, vi, bv, bi = to_host(*out)
+    vres = stores.store._materialize(vv, vi)[0]
+    with span("cs.readplane.unpack"):
+        fres = stores.fts.results_from_device(bv, bi, fetch)
     return vres, fres
 
 
 def device_candidates_many(stores, service, items):
-    """Batched fused read plane: B concurrent single-variant queries ride
-    ONE device call (the ``*_many`` ops — batched embed, batched vector
-    top-k, batched BM25). ``items`` is [(query, kind, fetch)]; returns a
-    list of (vpairs, fres) where vpairs is [(chunk_id, score)] sorted
-    descending and fres is [FtsResult] or None (None ⟹ caller falls back
-    to host FTS scoring). Semantics per item are identical to
-    device_candidates. Callers hold stores.lock."""
-    backend = service.backend
+    """Batched read plane: B concurrent single-variant queries ride ONE
+    device call (batched embed, batched vector top-k, batched BM25).
+    ``items`` is [(query, kind, fetch)]; returns a list of (vpairs, fres)
+    where vpairs is [(chunk_id, score)] sorted descending and fres is
+    [FtsResult] or None (None ⟹ caller falls back to host FTS scoring).
+    Semantics per item are identical to device_candidates. Callers hold
+    stores.lock."""
 
     def _single(query, kind, fetch):
         vres, fres = device_candidates(stores, service, query, kind, fetch)
@@ -116,27 +101,21 @@ def device_candidates_many(stores, service, items):
             hyb_idx.append(i)
             bm_list.append(bm)
 
-    bv = bi = None
+    bm_batch = None
     if bm_list:
         stacked = stack_wave(stores.fts, [items[i] for i in hyb_idx], bm_list)
         if stacked is None:
             return [_single(*it) for it in items]
         bm_batch = stacked[1]
-        if service.fused_kind() == "hash":
-            dev_out = stores.store.hybrid_search_featurized_many(
-                backend.model.table, ids, aux, kvmax, bm_batch)
-        else:
-            dev_out = stores.store.hybrid_search_encoded_many(
-                backend.encoder, ids, aux, kvmax, bm_batch)
-        if dev_out is None:  # store empty
-            return [_single(*it) for it in items]
+    dev_out = stores.store.dispatch(service.backend, ids, aux, kvmax, bm_batch)
+    if dev_out is None:  # store empty
+        return [_single(*it) for it in items]
+    bv = bi = None
+    if bm_batch is None:
+        cids, scores = stores.store.rows_to_ids(*dev_out)
+    else:
         vv, vi, bv, bi = to_host(*dev_out)
         cids, scores = stores.store.rows_to_ids(vv, vi)
-    elif service.fused_kind() == "hash":
-        cids, scores = stores.store.search_featurized_auto(
-            backend.model, ids, aux, kvmax, raw=True)
-    else:
-        cids, scores = stores.store.search_encoded(backend.encoder, ids, aux, kvmax, raw=True)
 
     hi_of = {i: h for h, i in enumerate(hyb_idx)}
     out = []

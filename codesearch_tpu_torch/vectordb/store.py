@@ -59,20 +59,7 @@ import msgpack
 import numpy as np
 import torch
 
-from ..ops.query_pipeline import (
-    bert_embed_hybrid_search,
-    bert_embed_hybrid_search_int8,
-    bert_embed_hybrid_search_many,
-    bert_embed_hybrid_search_many_int8,
-    bert_embed_search,
-    bert_embed_search_int8,
-    hash_embed_hybrid_search,
-    hash_embed_hybrid_search_int8,
-    hash_embed_hybrid_search_many,
-    hash_embed_hybrid_search_many_int8,
-    hash_embed_search,
-    hash_embed_search_int8,
-)
+from ..ops.bm25 import bm25_resident_topk, bm25_resident_topk_batch
 from ..ops.topk import cosine_topk, cosine_topk_int8
 from ..parallel.mesh import mesh_for
 from ..parallel.sharded_search import ShardedTensor
@@ -1096,15 +1083,20 @@ class VectorStore:
         with self._lock:
             n_valid = self._n_valid()
             if n_valid == 0:
-                return self._empty(query_vecs.shape[0], raw=False)
-            dev = self._ensure_device()
+                return [[] for _ in range(query_vecs.shape[0])]
+            self._ensure_device()
             k = min(limit, max(1, n_valid))
-            q = self._dev_tensor(query_vecs.astype(np.float32))
-            if dev[0] == "int8":
-                vals, idx = cosine_topk_int8(q, dev[1], dev[2], dev[3], k)
-            else:
-                vals, idx = cosine_topk(q, dev[1], dev[3], k)
+            vals, idx = self._topk(self._dev_tensor(query_vecs.astype(np.float32)), k)
         return self._materialize(vals, idx)
+
+    def _topk(self, q: torch.Tensor, k: int):
+        """Exact cosine top-k of [Q, d] device query vectors over the device
+        corpus (kernel a on bf16, b on int8). The caller holds the lock and
+        has synced the device (``_ensure_device``)."""
+        kind, mat, scale, valid = self._device
+        if kind == "int8":
+            return cosine_topk_int8(q, mat, scale, valid, k)
+        return cosine_topk(q, mat, valid, k)
 
     def rows_to_ids(self, vals, idx) -> tuple[np.ndarray, np.ndarray]:
         """(scores, row indices) -> (chunk ids [V, k] int64 with -1 for dead
@@ -1138,75 +1130,60 @@ class VectorStore:
                 out.append(results)
         return out
 
-    def _empty(self, nq: int, raw: bool):
-        if raw:
-            return np.zeros((nq, 0), np.int64), np.zeros((nq, 0), np.float32)
-        return [[] for _ in range(nq)]
-
     def _dev_tensor(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-    def search_featurized(self, table, ids: np.ndarray, weights: np.ndarray,
-                          limit: int, raw: bool = False):
-        """Featurized hash-model queries -> embed + exact top-k in one call."""
-        with span("cs.store.dispatch"):
-            with self._lock:
-                n_valid = self._n_valid()
-                if n_valid == 0:
-                    return self._empty(ids.shape[0], raw)
-                dev = self._ensure_device()
-                k = min(limit, max(1, n_valid))
-                ids_t, w_t = self._dev_tensor(ids), self._dev_tensor(weights)
-                if dev[0] == "int8":
-                    vals, idx = hash_embed_search_int8(table, ids_t, w_t, dev[1], dev[2],
-                                                       dev[3], k)
-                else:
-                    vals, idx = hash_embed_search(table, ids_t, w_t, dev[1], dev[3], k)
-            if raw:
-                return self.rows_to_ids(vals, idx)
-            return self._materialize(vals, idx)
+    def dispatch(self, backend, ids: np.ndarray, aux: np.ndarray, limit: int, bm_args=None):
+        """The store's one query entry. ``ids`` and ``aux`` are the [Q, T]
+        query rows of ``backend.featurize_queries``; ``bm_args`` is one
+        query's ``FtsStore.device_query_args`` or a wave's
+        ``fts.store.stack_query_args``. In the span ``cs.store.dispatch`` it
+        enqueues ``backend.embed_queries``, the exact cosine top-k at depth
+        ``min(limit, live rows)`` and, with ``bm_args``, the resident BM25
+        top-k, and returns the results unread on the device: (v_vals [Q, kv],
+        v_idx [Q, kv]), followed with ``bm_args`` by (b_vals, b_idx), [kb]
+        for one query and [Bpad, kb] for a wave. Read them back together
+        with ``to_host`` and unpack them with ``rows_to_ids`` or
+        ``_materialize``. A hash-model query without BM25 on a corpus of at
+        most ``host_path_rows`` rows is scored on the host instead
+        (``search_featurized_host``: numpy arrays of the same form). None
+        when the store holds no live row: one query then has no vector hits
+        (and, at a serving surface, its BM25 scored on the host), a wave
+        falls back to its queries one by one."""
+        if bm_args is None and 0 < self._rows <= self.host_path_rows:
+            table = backend.host_table()
+            if table is not None:
+                return self.search_featurized_host(table, ids, aux, limit)
+        with span("cs.store.dispatch"), self._lock:
+            n_valid = self._n_valid()
+            if n_valid == 0:
+                return None
+            self._ensure_device()
+            kv = min(limit, max(1, n_valid))
+            ids_t, aux_t = self._dev_tensor(ids), self._dev_tensor(aux)
+            if bm_args is not None:
+                bm25, bm, dense = self._bm_device(bm_args)
+            out = self._topk(backend.embed_queries(ids_t, aux_t), kv)
+            if bm_args is None:
+                return out
+            return (*out, *bm25(*bm, **dense))
 
-    def wants_host_path(self) -> bool:
-        """Should queries score on host? True for corpora small enough that
-        numpy beats the per-process trace/load cost of the fused device
-        executable (constants.HOST_PATH_ROWS; instance knob for tests)."""
-        return 0 < self._rows <= self.host_path_rows
-
-    def search_featurized_auto(
-        self, model, ids: np.ndarray, weights: np.ndarray, limit: int,
-        raw: bool = False,
-    ):
-        """ONE routing point between the fused device dispatch and the
-        small-corpus host twin, shared by every read surface (session
-        pipeline, wave paths, server read plane) so the host/device
-        decision cannot drift between them. ``model`` is the hash embedder
-        (provides both `.table` and `.table_np()`)."""
-        if self.wants_host_path():
-            return self.search_featurized_host(
-                model.table_np(), ids, weights, limit, raw=raw
-            )
-        return self.search_featurized(model.table, ids, weights, limit, raw=raw)
-
-    def search_featurized_host(
-        self, table_np: np.ndarray, ids: np.ndarray, weights: np.ndarray,
-        limit: int, raw: bool = False,
-    ):
-        """Pure-HOST twin of search_featurized for small corpora: hash
-        embedding + exact cosine + top-k in numpy — zero jit, zero device
-        state. A one-shot CLI search pays >1 s tracing and loading the
+    def search_featurized_host(self, table_np: np.ndarray, ids: np.ndarray,
+                               weights: np.ndarray, limit: int):
+        """Pure-HOST twin of ``dispatch`` for hash-model queries on small
+        corpora: hash embedding + exact cosine + top-k in numpy, with zero
+        device state. A one-shot CLI search pays >1 s tracing and loading the
         fused executable even on all-cache-hit warm starts (measured on the
         CPU backend); at ≤HOST_PATH_ROWS rows the [V,384]×[384,N] fp32
         matmul is single-digit milliseconds on one core. Scores accumulate
         in fp32 where the device path's matmul is bf16 (int8 stores: the
         fp16 source rows, i.e. higher precision than the quantized device
-        matrix) — equality of RANKING is what the equivalence tests pin."""
+        matrix) — equality of RANKING is what the equivalence tests pin.
+        Returns (scores [V, k], rows [V, k]), or None for an empty store."""
         with self._lock:
             n_valid = self._n_valid()
             if n_valid == 0:
-                if raw:
-                    shape = (ids.shape[0], 0)
-                    return np.zeros(shape, np.int64), np.zeros(shape, np.float32)
-                return [[] for _ in range(ids.shape[0])]
+                return None
             rows = self._rows_range(0, self._rows)            # [N, d] fp32
             dead = ~self._used_valid()[: self._rows]
             gathered = table_np[ids].astype(np.float32)       # [V, T, d]
@@ -1229,118 +1206,23 @@ class VectorStore:
             order = np.argsort(-pvals, axis=1, kind="stable")
             idx = np.take_along_axis(part, order, axis=1).astype(np.int32)
             vals = np.take_along_axis(pvals, order, axis=1).astype(np.float32)
-        if raw:
-            return self.rows_to_ids(vals, idx)
-        return self._materialize(vals, idx)
-
-    def search_encoded(self, encoder, ids: np.ndarray, mask: np.ndarray, limit: int,
-                       raw: bool = False):
-        """Tokenized BERT-family queries -> encoder forward + exact top-k in
-        one call (the JAX store's ``params, cfg`` are ``encoder``)."""
-        with span("cs.store.dispatch"):
-            with self._lock:
-                n_valid = self._n_valid()
-                if n_valid == 0:
-                    return self._empty(ids.shape[0], raw)
-                dev = self._ensure_device()
-                k = min(limit, max(1, n_valid))
-                ids_t, m_t = self._dev_tensor(ids), self._dev_tensor(mask)
-                if dev[0] == "int8":
-                    vals, idx = bert_embed_search_int8(encoder, ids_t, m_t, dev[1], dev[2],
-                                                       dev[3], k)
-                else:
-                    vals, idx = bert_embed_search(encoder, ids_t, m_t, dev[1], dev[3], k)
-            if raw:
-                return self.rows_to_ids(vals, idx)
-            return self._materialize(vals, idx)
-
-    def hybrid_search_featurized(self, table, ids: np.ndarray, weights: np.ndarray,
-                                 limit: int, bm_args, raw: bool = False,
-                                 defer: bool = False):
-        """The hybrid read plane: variant embedding + exact vector top-k +
-        resident BM25 top-k in one call. ``bm_args`` comes from the port's
-        ``FtsStore.device_query_args``. With ``defer`` the four result
-        tensors stay on the device for the caller to read back together."""
-        return self._hybrid(hash_embed_hybrid_search, hash_embed_hybrid_search_int8,
-                            table, ids, weights, limit, bm_args, raw, defer)
-
-    def hybrid_search_encoded(self, encoder, ids: np.ndarray, mask: np.ndarray,
-                              limit: int, bm_args, raw: bool = False, defer: bool = False):
-        """The hybrid read plane of BERT-family models: encoder forward +
-        exact vector top-k + resident BM25 top-k in one call; the contract of
-        ``hybrid_search_featurized``."""
-        return self._hybrid(bert_embed_hybrid_search, bert_embed_hybrid_search_int8,
-                            encoder, ids, mask, limit, bm_args, raw, defer)
+        return vals, idx
 
     def _bm_device(self, bm_args):
         """A ``device_query_args`` (or ``stack_query_args``) tuple as the
-        device call's BM25 arguments: the resident tensors, the interval
+        BM25 op to launch, one query's or (boost kinds an array) the wave's
+        batched one, and its arguments: the resident tensors, the interval
         tables and boost kind(s) on ``device``, (k, kpre, imax), and the
         plane weights and buffer as keywords when the dense leg runs."""
         fts_dev, cs, cl, ci, kid, kb, kbpre, imax, b_pw, b_planes = bm_args
-        kid = int(kid) if np.ndim(kid) == 0 else self._dev_tensor(kid)
+        wave = np.ndim(kid) > 0
+        kid = self._dev_tensor(kid) if wave else int(kid)
         bm = (fts_dev[0], fts_dev[1], fts_dev[2], self._dev_tensor(cs),
               self._dev_tensor(cl), self._dev_tensor(ci), kid, kb, kbpre, imax)
         dense = {}
         if b_planes is not None:
             dense = {"pw": self._dev_tensor(b_pw), "planes": b_planes}
-        return bm, dense
-
-    def _hybrid(self, fn_bf16, fn_int8, model, ids, aux, limit, bm_args, raw, defer):
-        """The span ``cs.store.dispatch``: its own time is the launch, its
-        children the readback and the unpacking."""
-        with span("cs.store.dispatch"):
-            with self._lock:
-                n_valid = self._n_valid()
-                if n_valid == 0:
-                    if defer:
-                        nq = ids.shape[0]
-                        return (np.zeros((nq, 0), np.float32), np.zeros((nq, 0), np.int32),
-                                np.zeros(0, np.float32), np.zeros(0, np.int32))
-                    return self._empty(ids.shape[0], raw), None, None
-                out = self._fused(fn_bf16, fn_int8, model, ids, aux, limit, bm_args, n_valid)
-            if defer:
-                return out
-            vv, vi, bv, bi = to_host(*out)
-            if raw:
-                return self.rows_to_ids(vv, vi), bv, bi
-            return self._materialize(vv, vi), bv, bi
-
-    def _fused(self, fn_bf16, fn_int8, model, ids, aux, limit, bm_args, n_valid):
-        """Launch one fused call on the device corpus; the caller holds the
-        lock and has checked that the store is not empty."""
-        dev = self._ensure_device()
-        kv = min(limit, max(1, n_valid))
-        ids_t, aux_t = self._dev_tensor(ids), self._dev_tensor(aux)
-        bm, dense = self._bm_device(bm_args)
-        if dev[0] == "int8":
-            return fn_int8(model, ids_t, aux_t, dev[1], dev[2], dev[3], kv, *bm, **dense)
-        return fn_bf16(model, ids_t, aux_t, dev[1], dev[3], kv, *bm, **dense)
-
-    def _many(self, fn_bf16, fn_int8, model, ids, aux, limit, bm_args):
-        with span("cs.store.dispatch"), self._lock:
-            n_valid = self._n_valid()
-            if n_valid == 0:
-                return None
-            return self._fused(fn_bf16, fn_int8, model, ids, aux, limit, bm_args, n_valid)
-
-    def hybrid_search_featurized_many(self, table, ids: np.ndarray, weights: np.ndarray,
-                                      limit: int, bm_args):
-        """A wave (``search_many``): every query's variants [Qtot, T] plus B
-        stacked BM25 interval tables (``fts.store.stack_query_args``) in one
-        call. Returns the four result tensors on the device, not read back
-        (vv [Qtot, kv], vi, bv [Bpad, kb], bi), so the caller overlaps host
-        work with the device; None when the store is empty."""
-        return self._many(hash_embed_hybrid_search_many, hash_embed_hybrid_search_many_int8,
-                          table, ids, weights, limit, bm_args)
-
-    def hybrid_search_encoded_many(self, encoder, ids: np.ndarray, mask: np.ndarray,
-                                   limit: int, bm_args):
-        """The BERT-family wave: one encoder forward over every query's
-        variants + the batched top-k, the contract of
-        ``hybrid_search_featurized_many``."""
-        return self._many(bert_embed_hybrid_search_many, bert_embed_hybrid_search_many_int8,
-                          encoder, ids, mask, limit, bm_args)
+        return (bm25_resident_topk_batch if wave else bm25_resident_topk), bm, dense
 
     def search(self, query_vec: np.ndarray, limit: int) -> list[SearchResult]:
         return self.search_batch(query_vec, limit)[0]

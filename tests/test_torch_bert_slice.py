@@ -29,10 +29,12 @@ from codesearch_tpu.models.encoder import init_params as jax_init_params
 from codesearch_tpu.models.registry import MODELS
 from codesearch_tpu.search.pipeline import SearchSession as JaxSession
 from codesearch_tpu.vectordb.store import VectorStore as JaxVectorStore
+from codesearch_tpu_torch.embed.service import _BertBackend
 from codesearch_tpu_torch.index import IndexOptions, index
 from codesearch_tpu_torch.models import encoder as te
 from codesearch_tpu_torch.ops import attention, fused_topk
 from codesearch_tpu_torch.search import SearchOptions, SearchSession
+from codesearch_tpu_torch.utils.device import to_host
 
 MODEL = "bge-small"
 ROW_COS_MIN = 0.999
@@ -94,9 +96,13 @@ def _legs(session, query, mode, port: bool):
     st = session._prep_query(query, SearchOptions(limit=10, mode=mode, no_expand=True))
     ids, mask = st["feats"]
     backend = session.service.backend
-    model = (backend.encoder,) if port else (backend.params, backend.cfg)
-    vv, vi, bv, bi = session.store.hybrid_search_encoded(
-        *model, ids, mask, st["fetch"], st["bm"], raw=True, defer=True)
+    if port:
+        vv, vi, bv, bi = to_host(*session.store.dispatch(backend, ids, mask, st["fetch"],
+                                                         st["bm"]))
+    else:
+        vv, vi, bv, bi = session.store.hybrid_search_encoded(
+            backend.params, backend.cfg, ids, mask, st["fetch"], st["bm"], raw=True,
+            defer=True)
     cids, scores = session.store.rows_to_ids(np.asarray(vv), np.asarray(vi))
     bm = session.fts.results_from_device(np.asarray(bv), np.asarray(bi), st["fetch"])
     return cids, scores, [(r.chunk_id, r.score) for r in bm]
@@ -141,10 +147,11 @@ def test_each_package_searches_both_indexes(indexes, writer):
 def test_port_session_embeds_queries_with_the_bert_backend(indexes):
     _, _, port_db = indexes
     ts = SearchSession(port_db, device="cpu")
-    assert ts.service.fused_kind() == "bert"
+    assert isinstance(ts.service.backend, _BertBackend)
     st = ts._prep_query("validate the schema", SearchOptions(limit=5))
     ids, mask = st["feats"]
-    assert st["fused"] == "bert" and ids.shape == mask.shape and ids.shape[1] in (16, 32, 64)
+    assert mask.dtype == np.int32 and set(np.unique(mask)) <= {0, 1}
+    assert ids.shape == mask.shape and ids.shape[1] in (16, 32, 64)
     vecs = ts.service.backend.encoder.encode(torch.from_numpy(ids), torch.from_numpy(mask))
     np.testing.assert_allclose(vecs.norm(dim=1).numpy(), 1.0, atol=1e-5)
 

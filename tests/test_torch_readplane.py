@@ -8,8 +8,10 @@ Each check gives the same seeded inputs to the JAX function and to its
 port (``device="cpu"``: the kernels' plain versions):
 
 - ``stack_query_args``: shapes, padding, maxima and the epoch errors;
-- the four ``*_many`` ops (hash and a 2-layer random-init bge-small, bf16
-  and int8, with and without score planes);
+- the store's one query entry ``VectorStore.dispatch`` on a wave and on one
+  query (hash and a 2-layer random-init bge-small, bf16 and int8, with and
+  without score planes) against the JAX package's ``*_hybrid_search[_many]``
+  functions;
 - ``SearchSession.search_many``: against JAX ``search_many`` and against the
   port's own ``search`` for each query, with the epoch and device-OOM
   fallbacks;
@@ -43,6 +45,7 @@ from codesearch_tpu.search.pipeline import SearchSession as JaxSession
 from codesearch_tpu.server import readplane as jrp
 from codesearch_tpu.vectordb.store import VectorStore as JaxVectorStore
 from codesearch_tpu_torch.embed import EmbeddingService
+from codesearch_tpu_torch.embed.service import _BertBackend
 from codesearch_tpu_torch.fts import FtsStore
 from codesearch_tpu_torch.fts.store import stack_query_args
 from codesearch_tpu_torch.index import IndexOptions, index
@@ -52,9 +55,9 @@ from codesearch_tpu_torch.models.hash_embedder import batch_features
 from codesearch_tpu_torch.models.registry import MODELS
 from codesearch_tpu_torch.models.tokenizer import load_tokenizer
 from codesearch_tpu_torch.ops import fused_topk
-from codesearch_tpu_torch.ops import query_pipeline as tqp
 from codesearch_tpu_torch.search import SearchOptions, SearchSession
 from codesearch_tpu_torch.server import readplane as trp
+from codesearch_tpu_torch.utils.device import to_host
 from codesearch_tpu_torch.vectordb import VectorStore
 from test_torch_bert_slice import SCORE_TOL as BERT_TOL
 from test_torch_slice import SCORE_TOL, _add_synthetic
@@ -176,7 +179,7 @@ def test_stack_query_args_refuses_a_moved_epoch(db):
 
 
 # ---------------------------------------------------------------------------
-# the four *_many ops
+# the store's query entry against the JAX package's query functions
 # ---------------------------------------------------------------------------
 
 def _bert_pair():
@@ -211,10 +214,26 @@ def _featurize(kind, texts):
     return ids, mask
 
 
-@pytest.mark.parametrize("planes", [True, False], ids=["planes", "sparse"])
-@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("kind", ["hash", "bert"])
-def test_many_ops_match_jax(db, bert, kind, int8, planes):
+def _backend(kind, bert):
+    """The port's embedding backend: the hash model's, or a BERT backend
+    whose encoder holds the JAX params (no checkpoint read)."""
+    if kind == "hash":
+        return EmbeddingService("code-hash-384", use_persistent_cache=False,
+                                device="cpu").backend
+    backend = object.__new__(_BertBackend)
+    backend.encoder = bert[2]
+    return backend
+
+
+# a wave against ``*_hybrid_search_many[_int8]`` (the cases' first ids), one
+# query against ``*_hybrid_search[_int8]`` (``-single``)
+@pytest.mark.parametrize("kind,int8,planes,wave", [
+    pytest.param(kind, int8, planes, wave,
+                 id=f"{kind}-{'int8' if int8 else 'bf16'}-{'planes' if planes else 'sparse'}"
+                    + ("" if wave else "-single"))
+    for kind in ("hash", "bert") for int8 in (False, True) for planes in (True, False)
+    for wave in (True, False)])
+def test_many_ops_match_jax(db, bert, kind, int8, planes, wave):
     jf, tf = _fts_pair(db)
     jf.planes_enabled = tf.planes_enabled = planes
     jstore = JaxVectorStore(db, dims=384, readonly=True, int8=int8)
@@ -226,47 +245,43 @@ def test_many_ops_match_jax(db, bert, kind, int8, planes):
         targs = [tf.device_query_args(*p) for p in preps]
     assert all(a is not None for a in targs)
     assert (targs[2][9] is not None) == planes
-    jbm, tbm = jax_stack(jargs), stack_query_args(targs)
-    rng = np.random.default_rng(7)
-    texts = [queries[i] for i in rng.integers(0, len(queries), size=11)]
+    if wave:
+        jbm, tbm = jax_stack(jargs), stack_query_args(targs)
+        rng = np.random.default_rng(7)
+        texts = [queries[i] for i in rng.integers(0, len(queries), size=11)]
+    else:       # one query's BM25 tables (a scalar boost kind) beside three vector rows
+        jbm, tbm = jargs[2], targs[2]
+        texts = queries[1:4]
     ids, aux = _featurize(kind, texts)
-    jdev, tdev = jstore._ensure_device(), tstore._ensure_device()
+    jdev = jstore._ensure_device()
     kv = 120
     corpus_j = (jdev[1], jdev[2], jdev[3]) if int8 else (jdev[1], jdev[3])
-    corpus_t = (tdev[1], tdev[2], tdev[3]) if int8 else (tdev[1], tdev[3])
-    jd, tdv = jbm[0], tbm[0]
+    jd = jbm[0]
     jbm_args = (jd[0], jd[1], jd[2], jnp.asarray(jbm[1]), jnp.asarray(jbm[2]),
                 jnp.asarray(jbm[3]), jnp.asarray(jbm[4]), jbm[5], jbm[6], jbm[7])
-    tbm_args = (tdv[0], tdv[1], tdv[2], torch.from_numpy(tbm[1]), torch.from_numpy(tbm[2]),
-                torch.from_numpy(tbm[3]), torch.from_numpy(tbm[4]), tbm[5], tbm[6], tbm[7])
     jkw = {"pw": jnp.asarray(jbm[8]), "planes": jbm[9]} if planes else {}
-    tkw = {"pw": torch.from_numpy(tbm[8]), "planes": tbm[9]} if planes else {}
-    suffix = "_int8" if int8 else ""
+    name = "_embed_hybrid_search" + ("_many" if wave else "") + ("_int8" if int8 else "")
     if kind == "hash":
         from codesearch_tpu.models.hash_embedder import make_table
 
-        jfn = getattr(jqp, "hash_embed_hybrid_search_many" + suffix)
-        jout = jfn(make_table(384), jnp.asarray(ids), jnp.asarray(aux), *corpus_j, kv,
-                   *jbm_args, **jkw)
-        model = EmbeddingService("code-hash-384", use_persistent_cache=False,
-                                 device="cpu").backend.model.table
+        jout = getattr(jqp, "hash" + name)(make_table(384), jnp.asarray(ids),
+                                           jnp.asarray(aux), *corpus_j, kv, *jbm_args, **jkw)
     else:
-        params, jcfg, model = bert
-        jfn = getattr(jqp, "bert_embed_hybrid_search_many" + suffix)
-        jout = jfn(params, jnp.asarray(ids), jnp.asarray(aux), jcfg, *corpus_j, kv,
-                   *jbm_args, **jkw)
-    tfn = getattr(tqp, f"{kind}_embed_hybrid_search_many" + suffix)
+        params, jcfg, _ = bert
+        jout = getattr(jqp, "bert" + name)(params, jnp.asarray(ids), jnp.asarray(aux), jcfg,
+                                           *corpus_j, kv, *jbm_args, **jkw)
     fused_topk.reset_launch_counts()
-    tout = tfn(model, torch.from_numpy(ids), torch.from_numpy(aux), *corpus_t, kv,
-               *tbm_args, **tkw)
+    tout = tstore.dispatch(_backend(kind, bert), ids, aux, kv, tbm)
     assert not any(fused_topk.launch_counts.values())   # plain versions on the CPU
     jv, ji, jb, jbi = (np.asarray(x) for x in jout)
-    tv, ti, tb, tbi = (x.numpy() for x in tout)
+    tv, ti, tb, tbi = to_host(*tout)
     assert tv.shape == jv.shape == (len(texts), kv) and tb.shape == jb.shape
     # the BM25 legs: each real query's hits, as the session maps them
-    for row, p in enumerate(preps):
-        got = tf.results_from_device(tb[row], tbi[row], p[2])
-        ref = jf.results_from_device(jb[row], jbi[row], p[2])
+    legs = ([(p, tb[row], tbi[row], jb[row], jbi[row]) for row, p in enumerate(preps)]
+            if wave else [(preps[2], tb, tbi, jb, jbi)])
+    for p, tbv, tbix, jbv, jbix in legs:
+        got = tf.results_from_device(tbv, tbix, p[2])
+        ref = jf.results_from_device(jbv, jbix, p[2])
         assert [r.chunk_id for r in got] == [r.chunk_id for r in ref] and ref, p
         np.testing.assert_allclose([r.score for r in got], [r.score for r in ref],
                                    rtol=0, atol=SCORE_TOL)
@@ -287,29 +302,74 @@ def test_many_ops_match_jax(db, bert, kind, int8, planes):
 
 
 def test_many_op_rows_equal_single_query_calls(db):
-    # a wave's rows are each query's own call: the hash op on a wave of
-    # variants equals its single-query twin row for row
+    # a wave's rows are each query's own call: the store's entry on a wave of
+    # hash-model queries equals its single-query calls row for row
     tstore = VectorStore(db, dims=384, readonly=True, device="cpu")
     _, tf = _fts_pair(db)
-    table = EmbeddingService("code-hash-384", use_persistent_cache=False,
-                             device="cpu").backend.model.table
-    dev = tstore._ensure_device()
+    backend = _backend("hash", None)
     preps = [(q, None, 100) for q in QUERIES[:3]]
     for _ in range(2):
         args = [tf.device_query_args(*p) for p in preps]
-    bm, dense = tstore._bm_device(stack_query_args(args))
-    ids, w = batch_features(QUERIES[:3])
-    vv, vi, bv, bi = tqp.hash_embed_hybrid_search_many(
-        table, torch.from_numpy(ids), torch.from_numpy(w), dev[1], dev[3], 100, *bm, **dense)
+    ids, w = backend.featurize_queries(QUERIES[:3])
+    vv, vi, bv, bi = to_host(*tstore.dispatch(backend, ids, w, 100, stack_query_args(args)))
     for row, a in enumerate(args):
-        sbm, sdense = tstore._bm_device(a)
-        one = tqp.hash_embed_hybrid_search(
-            table, torch.from_numpy(ids[row:row + 1]), torch.from_numpy(w[row:row + 1]),
-            dev[1], dev[3], 100, *sbm, **sdense)
-        np.testing.assert_array_equal(vi[row].numpy(), one[1][0].numpy())
-        got = tf.results_from_device(bv[row].numpy(), bi[row].numpy(), 100)
-        ref = tf.results_from_device(one[2].numpy(), one[3].numpy(), 100)
+        one = to_host(*tstore.dispatch(backend, ids[row:row + 1], w[row:row + 1], 100, a))
+        np.testing.assert_array_equal(vi[row], one[1][0])
+        got = tf.results_from_device(bv[row], bi[row], 100)
+        ref = tf.results_from_device(one[2], one[3], 100)
         assert [(r.chunk_id, r.score) for r in got] == [(r.chunk_id, r.score) for r in ref]
+
+
+def test_dispatch_scores_small_hash_corpora_on_the_host(db, bert):
+    # the entry's one routing rule: a hash-model query without BM25 on a
+    # corpus of at most host_path_rows rows is scored in numpy and ranked as
+    # the device ranks it; a BM25 leg or an encoder keeps the device route
+    store = VectorStore(db, dims=384, readonly=True, device="cpu")
+    assert 0 < store._rows <= store.host_path_rows
+    _, tf = _fts_pair(db)
+    hashed = _backend("hash", None)
+    ids, w = hashed.featurize_queries(QUERIES[:3])
+    host = store.dispatch(hashed, ids, w, 20)
+    assert all(isinstance(x, np.ndarray) for x in host) and store._device is None
+    bm = tf.device_query_args(QUERIES[0], None, 20)
+    assert all(isinstance(x, torch.Tensor)
+               for x in store.dispatch(hashed, ids[:1], w[:1], 20, bm))
+    b_ids, b_mask = _featurize("bert", QUERIES[:3])
+    assert all(isinstance(x, torch.Tensor)
+               for x in store.dispatch(_backend("bert", bert), b_ids, b_mask, 20))
+    store.host_path_rows = 0
+    (hc, hs), (dc, ds) = store.rows_to_ids(*host), store.rows_to_ids(*store.dispatch(
+        hashed, ids, w, 20))
+    # the host sums in f32 where the device's matmul is bf16: near-ties may
+    # swap, so each chunk the host ranks i-th scores, on the device, within
+    # the tolerance of the device's i-th
+    np.testing.assert_allclose(hs, ds, rtol=0, atol=2e-2)
+    for v in range(len(dc)):
+        dev_score = dict(zip(dc[v].tolist(), ds[v].tolist()))
+        for i, cid in enumerate(hc[v].tolist()):
+            assert abs(dev_score.get(cid, ds[v, -1]) - ds[v, i]) <= 2e-2, (v, i, cid)
+
+
+def test_dispatch_of_an_emptied_store_answers_nothing(db, tmp_path):
+    # no live row: the entry returns None on the device and the host routes;
+    # one serving query then has no vector hits and leaves BM25 to the host
+    # (fres None), and a wave falls back to its queries one by one
+    import shutil
+
+    shutil.copytree(db, tmp_path / "db")
+    stores = SharedStores(tmp_path / "db", 384, readonly=False, device="cpu")
+    stores.store.delete_chunks(stores.store.all_ids())
+    stores.fts.device_min_docs = 1
+    svc = EmbeddingService("code-hash-384", use_persistent_cache=False, device="cpu")
+    ids, w = svc.backend.featurize_queries(QUERIES[:2])
+    bm = stores.fts.device_query_args(QUERIES[0], None, 30)
+    assert bm is not None
+    for rows in (0, stores.store.host_path_rows):
+        stores.store.host_path_rows = rows
+        assert stores.store.dispatch(svc.backend, ids, w, 30) is None
+        assert stores.store.dispatch(svc.backend, ids[:1], w[:1], 30, bm) is None
+    assert trp.device_candidates(stores, svc, QUERIES[0], None, 30) == ([], None)
+    assert trp.device_candidates_many(stores, svc, ITEMS[:3]) == [([], None)] * 3
 
 
 # ---------------------------------------------------------------------------
@@ -391,7 +451,7 @@ def test_search_many_survives_a_moved_epoch(db, monkeypatch, moves):
 
 def test_search_many_releases_planes_on_device_oom(db, monkeypatch):
     _, ts = _sessions(db)
-    orig = ts.store.hybrid_search_featurized_many
+    orig = ts.store.dispatch
     calls = {"n": 0}
 
     def oom_once(*a, **kw):
@@ -400,7 +460,7 @@ def test_search_many_releases_planes_on_device_oom(db, monkeypatch):
             raise torch.OutOfMemoryError("CUDA out of memory (simulated)")
         return orig(*a, **kw)
 
-    monkeypatch.setattr(ts.store, "hybrid_search_featurized_many", oom_once)
+    monkeypatch.setattr(ts.store, "dispatch", oom_once)
     got = ts.search_many(QUERIES[:4], SearchOptions(limit=10))
     assert calls["n"] == 2 and not ts.fts.planes_enabled
     ref = SearchSession(db, device="cpu")
@@ -409,7 +469,7 @@ def test_search_many_releases_planes_on_device_oom(db, monkeypatch):
     for q, g in zip(QUERIES, got):
         _assert_same(g, ref.search(q, SearchOptions(limit=10)), q)
     # a second OOM is not hidden
-    monkeypatch.setattr(ts.store, "hybrid_search_featurized_many",
+    monkeypatch.setattr(ts.store, "dispatch",
                         lambda *a, **kw: (_ for _ in ()).throw(torch.OutOfMemoryError("again")))
     with pytest.raises(torch.OutOfMemoryError):
         ts.search_many(["merge the tree buffer"], SearchOptions(limit=10))

@@ -157,12 +157,13 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
     assert resp.hits and resp.hits[0].path.endswith("main.py"), resp.hits
     # the BERT-family backend (tokenizer, numpy init, encoder, attention) too
     from codesearch_tpu_torch.embed import EmbeddingService
+    from codesearch_tpu_torch.embed.service import _BertBackend
     from codesearch_tpu_torch.models.registry import ArchConfig, ModelSpec
 
     tiny = ModelSpec("tiny-bert", "test/tiny-bert", 64, "bert", arch=ArchConfig(
         vocab_size=2048, hidden=64, layers=2, heads=2, intermediate=128, max_len=64))
     svc = EmbeddingService(tiny, use_persistent_cache=False, device="cpu")
-    assert svc.fused_kind() == "bert"
+    assert isinstance(svc.backend, _BertBackend)
     assert svc.backend.embed(["def parse(path): return path"]).shape == (1, 64)
     blocked = [m for m in ("jax", "jaxlib", "ml_dtypes", "codesearch_tpu") if m in sys.modules]
     assert not blocked, blocked
@@ -249,6 +250,7 @@ def test_port_refuses_bert_models(tmp_path):
     import dataclasses
 
     from codesearch_tpu_torch.embed import EmbeddingService
+    from codesearch_tpu_torch.embed.service import _BertBackend
     from codesearch_tpu_torch.models.registry import MODELS
 
     for model in ("nomic-v1.5", "modernbert-large"):
@@ -256,7 +258,7 @@ def test_port_refuses_bert_models(tmp_path):
         arch = dataclasses.replace(spec.arch, hidden=64, heads=4, intermediate=96, layers=3)
         svc = EmbeddingService(dataclasses.replace(spec, arch=arch, dims=64),
                                use_persistent_cache=False, device="cpu")
-        assert svc.fused_kind() == "bert"
+        assert isinstance(svc.backend, _BertBackend)
         assert svc.backend.encoder.cfg.arch_style == spec.arch.arch_style
         vec = svc.embed_query("where is the rotary cache built")
         assert vec.shape == (64,) and np.isfinite(vec).all()

@@ -87,6 +87,7 @@ _ALONE_SCRIPT = textwrap.dedent("""
             __import__(m.name)
     from codesearch_tpu_torch.cli import main
     from codesearch_tpu_torch.embed import EmbeddingService
+    from codesearch_tpu_torch.embed.service import _BertBackend
     from codesearch_tpu_torch.index import IndexOptions, index
     from codesearch_tpu_torch.models.registry import MODELS, ArchConfig, ModelSpec
     from codesearch_tpu_torch.search import SearchOptions, SearchSession
@@ -102,13 +103,13 @@ _ALONE_SCRIPT = textwrap.dedent("""
     tiny = ModelSpec("tiny-bert", "test/tiny-bert", 64, "bert", arch=ArchConfig(
         vocab_size=2048, hidden=64, layers=2, heads=2, intermediate=128, max_len=64))
     svc = EmbeddingService(tiny, use_persistent_cache=False, device="cpu")
-    assert svc.fused_kind() == "bert"
+    assert isinstance(svc.backend, _BertBackend)
     assert svc.backend.embed(["def parse(path): return path"]).shape == (1, 64)
     MODELS[tiny.short_name] = tiny
     bstats = index(repo, IndexOptions(store_path=db / "bert", quiet=True, model=tiny.short_name),
                    device="cpu")
     bert_session = SearchSession(db / "bert", device="cpu")
-    assert bert_session.service.fused_kind() == "bert"
+    assert isinstance(bert_session.service.backend, _BertBackend)
     bert_session.store.host_path_rows = 0
     bert_session.fts.device_min_docs = 1
     bresp = bert_session.search("parse the configuration file", SearchOptions(limit=5))

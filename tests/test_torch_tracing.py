@@ -338,8 +338,11 @@ def test_index_and_queries_record_every_span(small, tmp_path, monkeypatch):
             assert by_id[s.parent].request == s.request
     for req, root in roots.items():
         assert sum(own[s.id] for s in raw if s.request == req) == root.end_ns - root.start_ns
+    # the store's entry returns its results unread: the read plane reads a
+    # query's back, so ``cs.store.dispatch`` is the enqueue alone
     names_under = {by_id[s.parent].name for s in raw if s.name == "cs.device.readback"}
-    assert names_under == {"cs.store.dispatch", "cs.embed.finish"}
+    assert names_under == {"cs.readplane.candidates", "cs.embed.finish"}
+    assert not any(by_id[s.parent].name == "cs.store.dispatch" for s in raw if s.parent)
 
 
 def test_search_session_timings_are_the_stage_spans(small, monkeypatch):
